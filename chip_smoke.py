@@ -66,52 +66,6 @@ def card_line() -> str:
 
 
 # =============================================================================
-# seeded container rows covering every kind and boundary
-# =============================================================================
-
-def _ranges(rng, n, hi):
-    starts = np.sort(rng.choice(hi - 64, n, replace=False))
-    return np.unique(np.concatenate(
-        [np.arange(s, s + rng.integers(1, 60)) for s in starts]))
-
-
-def container_cases(rng):
-    """name -> u16 value set; canonical kinds: arrays (incl. 4095 / 4096),
-    bitmaps (incl. 4097), runs (incl. one ending at 65535 and one covering
-    the whole chunk), and empty."""
-    pick = lambda n: np.sort(rng.choice(1 << 16, n, replace=False))  # noqa
-    return {
-        "array_small": np.unique(rng.integers(0, 1 << 16, 300)),
-        "array_4095": pick(4095), "array_4096": pick(4096),
-        "bitmap_4097": pick(4097),
-        "bitmap_dense": np.unique(rng.integers(0, 1 << 16, 30000)),
-        "run_few": _ranges(rng, 40, 1 << 16),
-        "run_to_65535": np.concatenate([_ranges(rng, 10, 60000),
-                                        np.arange(65000, 1 << 16)]),
-        "run_full": np.arange(1 << 16),
-        "empty": np.zeros(0, np.int64),
-    }
-
-
-def container_row(pr, values):
-    """(kind, card, nruns, u16[4096]) of the canonical container."""
-    rb = pr.RoaringBitmap.from_sorted_unique(
-        np.asarray(values, np.int64)).run_optimize()
-    row = np.full(4096, 0xFFFF, np.uint16)
-    if not rb.containers:
-        return 0, 0, 0, np.zeros(4096, np.uint16)
-    c = rb.containers[0]
-    if isinstance(c, pr.RunContainer):
-        row[0:2 * c.n_runs:2] = c.starts
-        row[1:2 * c.n_runs:2] = c.lengths
-        return 3, c.cardinality, c.n_runs, row
-    if isinstance(c, pr.BitmapContainer):
-        return 2, c.cardinality, 0, c.words.view(np.uint16).copy()
-    row[:c.arr.size] = c.arr
-    return 1, c.cardinality, 0, row
-
-
-# =============================================================================
 # bounds: bytes each function must move, operations it must do
 # =============================================================================
 
@@ -124,24 +78,57 @@ def _log2(x):
     return np.ceil(np.log2(np.maximum(x, 1) + 1)).astype(np.int64)
 
 
-def dispatch_bound(meta, b_rows, hits_written):
-    """(bound_ms, bound_by) of one dispatch launch: live pairs read their
-    two sides (a shared query row once), every pair reads its 24-byte meta
-    and writes its card (and its 8 kB hits row when written)."""
-    m = meta.reshape(-1, 6).astype(np.int64)
-    ka, kb, ca, cb, ra, rb = m.T
+def _probed_sectors(torch, rows, which, cards, chunk=8192):
+    """bool[len(which), 256]: the 32-byte sectors of a bitmap row that the
+    packed array ``rows[which]`` (its first ``cards`` slots) probes."""
+    out = torch.zeros((which.numel(), 256), dtype=torch.bool,
+                      device=rows.device)
+    slot = torch.arange(rows.shape[1], device=rows.device)
+    for s in range(0, which.numel(), chunk):
+        v = (rows[which[s:s + chunk]].to(torch.int64) & 0xFFFF) >> 8
+        v = torch.where(slot < cards[s:s + chunk, None], v, 256)
+        hit = torch.zeros((v.shape[0], 257), dtype=torch.bool,
+                          device=rows.device)
+        out[s:s + chunk] = hit.scatter_(1, v, True)[:, :256]
+    return out
+
+
+def dispatch_bound(torch, a, b, meta, hits_written):
+    """(bound_ms, bound_by) of one dispatch launch over pairs (a[r], b[r %
+    len(b)]): every pair reads its 24-byte meta and writes its card (and
+    its 8 kB hits row when written); a live pair reads its a row once and
+    every b row is read once for all its pairs. An array or run side
+    counts its packed values; a bitmap side counts 8 kB, or in a probe
+    cell (array x bitmap) only the 32-byte sectors the array's values hit."""
+    m = meta.view(-1, 6).to(torch.int64)
+    ka, kb, ca, cb, ra, rb = m.unbind(1)
+    R, Rb = a.shape[0], b.shape[0]
+    brow = torch.arange(R, device=a.device) % Rb
     live = (ka > 0) & (kb > 0)
-    n = m.shape[0]
-    nbytes = n * (24 + 4 + (8192 if hits_written else 0))
-    nbytes += int(_side_bytes(ka, ca, ra)[live].sum())
-    qrow = np.arange(n) % b_rows
-    used = np.zeros(b_rows, bool)
-    used[qrow[live]] = True
-    first = np.zeros(b_rows, np.int64)
-    first[qrow[::-1]] = np.arange(n)[::-1]        # a pair that reads each row
-    nbytes += int(_side_bytes(kb[first], cb[first], rb[first])[used].sum())
+    nbytes = R * (24 + 4 + (8192 if hits_written else 0))
+    # a side, per live pair
+    packed = lambda k, c, n: torch.where(  # noqa: E731
+        k == 1, 2 * c, torch.where(k == 3, 4 * n, 0))
+    nbytes += int(packed(ka, ca, ra)[live].sum())
+    nbytes += 8192 * int((live & (ka == 2) & (kb != 1)).sum())
+    probe = torch.nonzero(live & (ka == 2) & (kb == 1)).flatten()
+    nbytes += 32 * int(_probed_sectors(torch, b, brow[probe],
+                                       cb[probe]).sum())
+    # b side, per row, for the union of its live pairs
+    used = torch.zeros(Rb, dtype=torch.int64, device=a.device)
+    used.scatter_reduce_(0, brow[live], packed(kb, cb, rb)[live], "amax")
+    nbytes += int(used.sum())
+    full = torch.zeros(Rb, dtype=torch.bool, device=a.device)
+    full[brow[live & (kb == 2) & (ka != 1)]] = True
+    probe = torch.nonzero(live & (ka == 1) & (kb == 2)).flatten()
+    need = torch.zeros((Rb, 256), dtype=torch.int32, device=a.device)
+    need.index_add_(0, brow[probe], _probed_sectors(
+        torch, a, probe, ca[probe]).to(torch.int32))
+    nbytes += 32 * int(torch.where(full, 256, (need > 0).sum(1)).sum())
     # operations: gallop / probe / run search per array slot, word ops and
     # coverage searches per 32-bit word of the bits cells
+    ka, kb, ca, cb, ra, rb, live = (x.cpu().numpy() for x in
+                                    (ka, kb, ca, cb, ra, rb, live))
     arr_a, arr_b = ka == 1, kb == 1
     ops = np.where(arr_a & arr_b, ca * (4 * _log2(cb) + 4), 0)
     ops += np.where(arr_a & (kb == 2), ca * 6, 0)
@@ -196,26 +183,18 @@ def time_ms(torch, fn, iters, warmup=1):
 # phases
 # =============================================================================
 
-def check_kernels(torch, pr, K, ops, ref, F, seed):
+def check_kernels(torch, cases, K, ops, ref, F, seed):
     """Every kernel against its plain version on seeded rows covering all
     nine pair classes, dead pairs, the 4095/4096/4097 boundaries, runs
     ending at 65535, a run covering the chunk, stacked N*C grids, fused
     trees of depth 1-5 and a plan too large for shared memory."""
     rng = np.random.default_rng(seed)
-    rows = {n: container_row(pr, v)
-            for n, v in container_cases(rng).items()}
+    rows = cases.case_rows(rng)
     names = list(rows)
-    A, B, meta = [], [], []
-    for na in names:
-        for nb in names:
-            ka, ca, ra, da = rows[na]
-            kb, cb, rb, db = rows[nb]
-            A.append(da)
-            B.append(db)
-            meta += [ka, kb, ca, cb, ra, rb]
-    A = torch.from_numpy(np.stack(A).view(np.int16)).cuda()
-    B = torch.from_numpy(np.stack(B).view(np.int16)).cuda()
-    meta = torch.tensor(meta, dtype=torch.int32).cuda()
+    A, B, meta = cases.pair_grid(rows, names, names)
+    A = torch.from_numpy(A.view(np.int16)).cuda()
+    B = torch.from_numpy(B.view(np.int16)).cuda()
+    meta = torch.from_numpy(meta).cuda()
     classes = {(rows[a][0], rows[b][0]) for a in names for b in names
                if rows[a][0] and rows[b][0]}
     if len(classes) != 9:
@@ -357,68 +336,38 @@ def main_path(torch, S, K, obs, n_terms, seed, device="cuda"):
     if index.C != -(-N_DOCS // 65536):
         raise AssertionError(f"C = {index.C} does not cover {N_DOCS} docs")
 
-    captured = {}
-
-    def capture(name, fn, size):
-        def wrapped(*args, **kw):
-            entry = kw.get("entry", name)
-            n = size(*args)
-            if entry not in captured or n > captured[entry][0]:
-                captured[entry] = (n, args, dict(kw))
-            return fn(*args, **kw)
-        return wrapped
-
-    def live_pairs(a, b, meta, *rest):
-        m = meta.view(-1, 6)
-        return int(((m[:, 0] > 0) & (m[:, 1] > 0)).sum())
-
-    def live_cells(ops, meta, *rest):      # live (operand, column) rows
-        N, C = ops.shape[0], ops.shape[1]
-        return int((meta[:3 * N * C:3] > 0).sum())
-
-    # keep, per entry, the launch with the most live work on the path (one
-    # scalar read per launch; each batch already reads its result back)
-    orig = (K.intersect_dispatch_cuda, K.fused_eval_cuda)
-    K.intersect_dispatch_cuda = capture("intersect_dispatch", orig[0],
-                                        live_pairs)
-    K.fused_eval_cuda = capture("fused_tree", orig[1], live_cells)
     oracle = Oracle(S, postings, terms)
-    try:
-        if device == "cuda":
-            torch.cuda.reset_peak_memory_stats()
-        K.reset_launch_counts()
-        obs.reset_metrics()
-        svc = S.SearchService(index, max_batch=16, cache_slots=256,
-                              fused=True)
-        stats = {}
-        for mode, n in (("count", 1024), ("docs", 96), ("topk", 96)):
-            qs = make_queries(S, terms, n, seed + len(stats))
-            t = time.perf_counter()
-            stats[mode] = S.run_closed_loop(svc, qs, concurrency=64,
-                                            mode=mode, k=10)
-            sync()
-            log(f"fused {mode}: {n} requests in "
-                f"{time.perf_counter() - t:.2f} s")
-        fused_batches = svc.steps_run
-        sample = make_queries(S, terms, 12, seed + 99)
-        got_count = svc.search_many(sample, "count")
-        got_docs = svc.search_many(sample, "docs")
-        got_topk = svc.search_many(sample[:6], "topk", k=10)
-        fused_batches = svc.steps_run
-        per_op = S.SearchService(index, max_batch=16, cache_slots=256,
-                                 fused=False)
-        per_op_qs = make_queries(S, terms, 128, seed + 7)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    obs.reset_metrics()
+    svc = S.SearchService(index, max_batch=16, cache_slots=256, fused=True)
+    stats = {}
+    for mode, n in (("count", 1024), ("docs", 96), ("topk", 96)):
+        qs = make_queries(S, terms, n, seed + len(stats))
         t = time.perf_counter()
-        stats["per_op count"] = S.run_closed_loop(per_op, per_op_qs,
-                                                  concurrency=64,
-                                                  mode="count")
+        stats[mode] = S.run_closed_loop(svc, qs, concurrency=64, mode=mode,
+                                        k=10)
         sync()
-        log(f"per-op count: 128 requests in {time.perf_counter() - t:.2f} s")
-        per_op_docs = per_op.search_many(sample, "docs")
-        sync()
-        launches = dict(K.launch_counts)
-    finally:
-        K.intersect_dispatch_cuda, K.fused_eval_cuda = orig
+        log(f"fused {mode}: {n} requests in {time.perf_counter() - t:.2f} s")
+    sample = make_queries(S, terms, 12, seed + 99)
+    got_count = svc.search_many(sample, "count")
+    got_docs = svc.search_many(sample, "docs")
+    got_topk = svc.search_many(sample[:6], "topk", k=10)
+    fused_batches = svc.steps_run
+    per_op = S.SearchService(index, max_batch=16, cache_slots=256,
+                             fused=False)
+    per_op_qs = make_queries(S, terms, 128, seed + 7)
+    t = time.perf_counter()
+    stats["per_op count"] = S.run_closed_loop(per_op, per_op_qs,
+                                              concurrency=64, mode="count")
+    sync()
+    log(f"per-op count: 128 requests in {time.perf_counter() - t:.2f} s")
+    per_op_docs = per_op.search_many(sample, "docs")
+    sync()
+    launches = dict(K.launch_counts)
+    peak = (torch.cuda.max_memory_allocated() / 1e9 if device == "cuda"
+            else float("nan"))
 
     for q, c, d, p in zip(sample, got_count, got_docs, per_op_docs):
         want = oracle.docs(q)
@@ -451,12 +400,52 @@ def main_path(torch, S, K, obs, n_terms, seed, device="cuda"):
         log(f"{mode}: {st.qps:.1f} QPS, p50 {st.p50_us:.0f} us, p99 "
             f"{st.p99_us:.0f} us (closed loop, 64 in flight; {card})")
     hist = reg.histogram("search.latency_us")
-    peak = (torch.cuda.max_memory_allocated() / 1e9 if device == "cuda"
-            else float("nan"))
     log(f"search.latency_us: n={hist.count} p50 "
         f"{S.percentile(hist, 50):.0f} us p99 {S.percentile(hist, 99):.0f} "
         f"us; max_memory_allocated {peak:.3f} GB ({card})")
-    return launches, captured, index, terms
+    return launches, index, terms
+
+
+def capture_inputs(torch, S, K, index, terms, seed):
+    """Per kernel entry, the launch with the most live work on the main
+    path: the fused count and topk streams and the per-op count stream of
+    ``main_path`` replayed on fresh services, after the timed windows, so
+    that the capture's host reads never reach their numbers."""
+    captured = {}
+
+    def capture(name, fn, size):
+        def wrapped(*args, **kw):
+            entry = kw.get("entry", name)
+            n = size(*args)
+            if entry not in captured or n > captured[entry][0]:
+                captured[entry] = (n, args, dict(kw))
+            return fn(*args, **kw)
+        return wrapped
+
+    def live_pairs(a, b, meta, *rest):
+        m = meta.view(-1, 6)
+        return int(((m[:, 0] > 0) & (m[:, 1] > 0)).sum())
+
+    def live_cells(ops, meta, *rest):      # live (operand, column) rows
+        N, C = ops.shape[0], ops.shape[1]
+        return int((meta[:3 * N * C:3] > 0).sum())
+
+    orig = (K.intersect_dispatch_cuda, K.fused_eval_cuda)
+    K.intersect_dispatch_cuda = capture("intersect_dispatch", orig[0],
+                                        live_pairs)
+    K.fused_eval_cuda = capture("fused_tree", orig[1], live_cells)
+    try:
+        for fused, mode, n, qseed in ((True, "count", 1024, seed),
+                                      (True, "topk", 96, seed + 2),
+                                      (False, "count", 128, seed + 7)):
+            svc = S.SearchService(index, max_batch=16, cache_slots=256,
+                                  fused=fused)
+            S.run_closed_loop(svc, make_queries(S, terms, n, qseed),
+                              concurrency=64, mode=mode, k=10)
+        torch.cuda.synchronize()
+    finally:
+        K.intersect_dispatch_cuda, K.fused_eval_cuda = orig
+    return captured
 
 
 def where_time_goes(torch, S, obs, index, terms, seed):
@@ -517,7 +506,7 @@ def kernel_rows(torch, K, ref, F, launches, captured):
     err = _max_err(torch, (hk, ck), (hp, cp))
     ms = time_ms(torch, lambda: K.intersect_dispatch_cuda(a, b, meta), 20)
     pms = time_ms(torch, lambda: ref.intersect_dispatch_ref(a, b, meta), 3)
-    bound = dispatch_bound(meta.cpu().numpy(), b.shape[0], True)
+    bound = dispatch_bound(torch, a, b, meta, True)
     out.append(_row("intersect_dispatch", launches, err, ms, pms, bound,
                     f"{a.shape[0]} pairs ({live} live)"))
 
@@ -530,7 +519,7 @@ def kernel_rows(torch, K, ref, F, launches, captured):
                  10)
     pms = time_ms(torch, lambda: _plain_card_only(torch, ref, a, q, meta), 1,
                   warmup=0)
-    bound = dispatch_bound(meta.cpu().numpy(), q.shape[0], False)
+    bound = dispatch_bound(torch, a, q, meta, False)
     out.append(_row("intersect_dispatch_stacked", launches, err, ms, pms,
                     bound, f"{a.shape[0]} pairs ({live} live) vs "
                     f"{q.shape[0]} query rows, card only"))
@@ -601,7 +590,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(HERE / "src"))
     import repro_torch.obs as obs
     from repro_torch import search as S
-    from repro_torch.core import py_roaring as pr
+    from repro_torch.kernels.roaring import cases
     from repro_torch.kernels.roaring import fused as F
     from repro_torch.kernels.roaring import kernel as K
     from repro_torch.kernels.roaring import ops
@@ -619,9 +608,10 @@ def main(argv=None) -> int:
     log(f"build: {time.perf_counter() - t:.1f} s (nvcc, sm_90a, in parallel)")
     log("kernels: " + json.dumps(list(KERNELS)))
 
-    check_kernels(torch, pr, K, ops, ref, F, args.seed)
-    launches, captured, index, terms = main_path(torch, S, K, obs,
-                                                 args.terms, args.seed)
+    check_kernels(torch, cases, K, ops, ref, F, args.seed)
+    launches, index, terms = main_path(torch, S, K, obs, args.terms,
+                                       args.seed)
+    captured = capture_inputs(torch, S, K, index, terms, args.seed)
     rows = kernel_rows(torch, K, ref, F, launches, captured)
     where_time_goes(torch, S, obs, index, terms, args.seed)
     log(f"total: {time.perf_counter() - t_start:.1f} s")

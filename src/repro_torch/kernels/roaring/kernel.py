@@ -1,11 +1,12 @@
 """Build, bind and launch the hand-written CUDA kernels of ``csrc/``.
 
-Each ``.cu`` source compiles with ``nvcc`` for ``sm_90a`` into its own
-shared library with a plain C interface, loaded with ``ctypes``. Builds
-happen at first use, never at import: all sources compile in parallel (one
-``nvcc`` process each) into ``_build/`` next to this file, under a name that
-hashes the sources, the generated dispatch table and the flags, so an edit
-never reuses a stale library.
+The ``.cu`` sources compile with ``nvcc`` for ``sm_90a`` into one shared
+library with a plain C interface, loaded with ``ctypes``. Builds happen at
+first use, never at import: each source compiles to an object in its own
+``nvcc`` process, all started together, and one link makes the library in
+``_build/`` next to this file, under a name that hashes the sources, the
+generated dispatch table and the flags, so an edit never reuses a stale
+library.
 
 Wrappers take CUDA tensors only, check dtype / shape / contiguity, allocate
 the outputs, launch on PyTorch's current stream and raise if the launch
@@ -34,10 +35,9 @@ __all__ = ["build", "and_table_source", "launch_counts",
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parent / "_build"
-_SOURCES = {"intersect_dispatch": "intersect_dispatch.cu",
-            "fused_eval": "fused_eval.cu"}
+_SOURCES = ("intersect_dispatch.cu", "fused_eval.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 # row-kernel ids of the CUDA cell switch (RK_* in and_table.inc)
 _KERNEL_IDS = {"gallop": 1, "probe": 2, "word_and": 3, "run_gallop": 4,
@@ -87,70 +87,66 @@ def _nvcc() -> str:
                        "toolkit to build")
 
 
-def build() -> Dict[str, Path]:
-    """Compile every kernel source that has no up-to-date library yet, all
-    in parallel; returns name -> library path. Raises with the compiler's
-    output if any build fails."""
+def build() -> Path:
+    """Build the kernel library unless an up-to-date one exists; returns its
+    path. Raises with the compiler's output if a build step fails."""
     header = and_table_source()
-    common = (_CSRC / "roaring_common.cuh").read_bytes() + header.encode()
-    libs, procs = {}, {}
-    _BUILD.mkdir(parents=True, exist_ok=True)
-    inc = _BUILD / f"inc_{hashlib.sha256(header.encode()).hexdigest()[:12]}"
-    inc.mkdir(exist_ok=True)
-    (inc / "and_table.inc").write_text(header)
-    for name, src in _SOURCES.items():
-        digest = hashlib.sha256(
-            (_CSRC / src).read_bytes() + common
-            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        lib = _BUILD / f"lib{name}_{digest}.so"
-        libs[name] = lib
-        if lib.exists():
-            continue
-        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(_CSRC), "-I", str(inc),
-               "-o", str(tmp), str(_CSRC / src)]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT), tmp, lib)
-    errors = []
-    for name, (p, tmp, lib) in procs.items():
-        out, _ = p.communicate()
-        if p.returncode != 0:
-            errors.append(f"{name}: nvcc exit {p.returncode}\n"
-                          f"{out.decode(errors='replace')}")
-        else:
-            os.replace(tmp, lib)
+    digest = hashlib.sha256(b"".join(
+        [(_CSRC / f).read_bytes() for f in (*_SOURCES, "roaring_common.cuh")]
+        + [header.encode(), " ".join(NVCC_FLAGS).encode()])).hexdigest()[:16]
+    lib = _BUILD / f"libroaring_{digest}.so"
+    if lib.exists():
+        return lib
+    work = _BUILD / f"{digest}.{os.getpid()}"
+    work.mkdir(parents=True, exist_ok=True)
+    (work / "and_table.inc").write_text(header)
+    objs = [work / f"{src[:-3]}.o" for src in _SOURCES]
+    steps = [(src, subprocess.Popen(
+        [_nvcc(), *NVCC_FLAGS, "-I", str(_CSRC), "-I", str(work), "-c",
+         "-o", str(obj), str(_CSRC / src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+        for src, obj in zip(_SOURCES, objs)]
+    outs = [(what, p.communicate()[0], p.returncode) for what, p in steps]
+    if not any(rc for _, _, rc in outs):
+        link = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(work / "lib.so"),
+             *map(str, objs)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        outs.append(("link", link.stdout, link.returncode))
+    errors = [f"{what}: nvcc exit {rc}\n{out.decode(errors='replace')}"
+              for what, out, rc in outs if rc]
     if errors:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(errors))
-    return libs
+    os.replace(work / "lib.so", lib)
+    shutil.rmtree(work, ignore_errors=True)
+    return lib
 
 
-_LIBS: Dict[str, ctypes.CDLL] = {}
+_LIB: Optional[ctypes.CDLL] = None
 _P = ctypes.c_void_p
 
 
-def _lib(name: str) -> ctypes.CDLL:
-    if not _LIBS:
-        paths = build()
-        di = ctypes.CDLL(str(paths["intersect_dispatch"]))
-        di.roaring_intersect_dispatch.argtypes = [
+def _lib() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build()))
+        lib.roaring_intersect_dispatch.argtypes = [
             _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, _P]
-        di.roaring_intersect_dispatch.restype = ctypes.c_int
-        di.roaring_error_string.argtypes = [ctypes.c_int]
-        di.roaring_error_string.restype = ctypes.c_char_p
-        fe = ctypes.CDLL(str(paths["fused_eval"]))
-        fe.roaring_fused_eval.argtypes = [
+        lib.roaring_intersect_dispatch.restype = ctypes.c_int
+        lib.roaring_fused_eval.argtypes = [
             _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, _P, _P, _P, _P]
-        fe.roaring_fused_eval.restype = ctypes.c_int
-        fe.roaring_fused_max_smem_slots.argtypes = []
-        fe.roaring_fused_max_smem_slots.restype = ctypes.c_int
-        _LIBS.update(intersect_dispatch=di, fused_eval=fe)
-    return _LIBS[name]
+        lib.roaring_fused_eval.restype = ctypes.c_int
+        lib.roaring_fused_max_smem_slots.argtypes = []
+        lib.roaring_fused_max_smem_slots.restype = ctypes.c_int
+        lib.roaring_error_string.argtypes = [ctypes.c_int]
+        lib.roaring_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
 
 
 def _raise_on(err: int, what: str) -> None:
     if err != 0:
-        msg = _lib("intersect_dispatch").roaring_error_string(err)
+        msg = _lib().roaring_error_string(err)
         raise RuntimeError(f"{what} launch failed: CUDA error {err} "
                            f"({msg.decode()})")
 
@@ -198,7 +194,7 @@ def intersect_dispatch_cuda(a: torch.Tensor, b: torch.Tensor,
     hits = (torch.empty((R, D.ROW_WORDS), dtype=torch.int16, device=a.device)
             if want_hits else None)
     card = torch.empty((R,), dtype=torch.int32, device=a.device)
-    err = _lib("intersect_dispatch").roaring_intersect_dispatch(
+    err = _lib().roaring_intersect_dispatch(
         _ptr(a), _ptr(b), _ptr(meta), _ptr(hits), _ptr(card), R, Rb,
         _stream(a))
     _raise_on(err, entry)
@@ -214,7 +210,7 @@ def fused_max_smem_slots(device) -> int:
     idx = torch.device(device).index or 0
     if idx not in _MAX_SLOTS:
         with torch.cuda.device(idx):
-            _MAX_SLOTS[idx] = _lib("fused_eval").roaring_fused_max_smem_slots()
+            _MAX_SLOTS[idx] = _lib().roaring_fused_max_smem_slots()
     return _MAX_SLOTS[idx]
 
 
@@ -239,7 +235,7 @@ def fused_eval_cuda(ops: torch.Tensor, meta: torch.Tensor,
                               dtype=torch.int32, device=ops.device)
     bits = torch.empty((C, D.ROW_WORDS), dtype=torch.int16, device=ops.device)
     card = torch.empty((C,), dtype=torch.int32, device=ops.device)
-    err = _lib("fused_eval").roaring_fused_eval(
+    err = _lib().roaring_fused_eval(
         _ptr(ops), _ptr(meta), _ptr(tape), tape.shape[0], N, C, plan.n_slots,
         _ptr(bits), _ptr(card), _ptr(scratch), _stream(ops))
     _raise_on(err, "fused_tree")

@@ -7,52 +7,8 @@ arrays; outputs come back as numpy and are compared exactly.
 import numpy as np
 import torch
 
-from repro.core import py_roaring as pr
-
-ROW_WORDS = 4096
-
-# kinds as container-value generators: name -> (kind, fn(rng) -> u16 values)
-KIND_CASES = {
-    "array_small": (1, lambda r: np.unique(r.integers(0, 1 << 16, 300))),
-    "array_4095": (1, lambda r: np.sort(r.choice(1 << 16, 4095,
-                                                 replace=False))),
-    "array_4096": (1, lambda r: np.sort(r.choice(1 << 16, 4096,
-                                                 replace=False))),
-    "bitmap_4097": (2, lambda r: np.sort(r.choice(1 << 16, 4097,
-                                                  replace=False))),
-    "bitmap_dense": (2, lambda r: np.unique(r.integers(0, 1 << 16, 30000))),
-    "run_few": (3, lambda r: _ranges(r, 40, 1 << 16)),
-    "run_to_65535": (3, lambda r: np.concatenate(
-        [_ranges(r, 10, 60000), np.arange(65000, 1 << 16)])),
-    "run_full": (3, lambda r: np.arange(1 << 16)),
-}
-
-
-def _ranges(rng, n, hi):
-    """Union of ``n`` random short ranges below ``hi``."""
-    starts = np.sort(rng.choice(hi - 64, n, replace=False))
-    return np.unique(np.concatenate(
-        [np.arange(s, s + rng.integers(1, 60)) for s in starts]))
-
-
-def container_row(values):
-    """Canonical (best-of-three) container of u16 ``values`` -> (kind,
-    card, nruns, u16[4096] raw row)."""
-    rb = pr.RoaringBitmap.from_sorted_unique(
-        np.asarray(values, np.int64)).run_optimize()
-    if not rb.containers:
-        return 0, 0, 0, np.zeros(ROW_WORDS, np.uint16)
-    c = rb.containers[0]
-    if isinstance(c, pr.RunContainer):
-        row = np.full(ROW_WORDS, 0xFFFF, np.uint16)
-        row[0:2 * c.n_runs:2] = c.starts
-        row[1:2 * c.n_runs:2] = c.lengths
-        return 3, c.cardinality, c.n_runs, row
-    if isinstance(c, pr.BitmapContainer):
-        return 2, c.cardinality, 0, c.words.view(np.uint16).copy()
-    row = np.full(ROW_WORDS, 0xFFFF, np.uint16)
-    row[:c.arr.size] = c.arr
-    return 1, c.cardinality, 0, row
+from repro_torch.kernels.roaring.cases import (  # noqa: F401
+    KIND_CASES, case_rows, container_row, pair_grid)
 
 
 def to_t16(a):
@@ -79,16 +35,22 @@ import pytest  # noqa: E402
 
 @pytest.fixture(scope="module", autouse=True)
 def release_jax_executables():
-    """Free the reference's compiled programs when a module's tests end.
+    """Free every compiled XLA program of the worker when a module's tests
+    start and again when they end.
 
     Every XLA:CPU executable holds memory maps, and a process may hold at
     most ``vm.max_map_count`` of them (65,530 by default); a test worker
     that passes that count segfaults in its next compile. The reference
-    side of these parity tests compiles thousands of small programs, so
-    each module drops them (with every other cached program of its
-    worker) on the way out. Importing the fixture into a test module
-    turns it on there."""
+    suite never frees its programs on this jaxlib, so a worker that picks
+    up these modules late in a run may already hold tens of thousands of
+    maps; the reference side of these parity tests compiles more. Importing
+    the fixture into a test module turns it on there."""
+    _clear()
     yield
+    _clear()
+
+
+def _clear():
     jax = sys.modules.get("jax")
     if jax is not None:
         jax.clear_caches()

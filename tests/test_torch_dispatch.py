@@ -18,7 +18,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from _torch_parity import (KIND_CASES, container_row,  # noqa: F401
+from _torch_parity import (KIND_CASES, case_rows, pair_grid,  # noqa: F401
                            release_jax_executables, to_np16, to_t16)
 from repro.kernels.roaring import dispatch as JD
 from repro.kernels.roaring import ops as JOPS
@@ -35,22 +35,7 @@ _jax_dispatch = jax.jit(JR.intersect_dispatch_ref)     # compiled once
 
 @pytest.fixture(scope="module")
 def rows():
-    rng = np.random.default_rng(SEED)
-    out = {n: container_row(KIND_CASES[n][1](rng)) for n in sorted(KIND_CASES)}
-    out["empty"] = container_row([])
-    return out
-
-
-def _pairs(rows, names_a, names_b):
-    A, B, meta = [], [], []
-    for na in names_a:
-        for nb in names_b:
-            ka, ca, ra, da = rows[na]
-            kb, cb, rb, db = rows[nb]
-            A.append(da)
-            B.append(db)
-            meta += [ka, kb, ca, cb, ra, rb]
-    return np.stack(A), np.stack(B), np.asarray(meta, np.int32)
+    return case_rows(np.random.default_rng(SEED))
 
 
 def _both(A, B, meta):
@@ -64,7 +49,7 @@ def _both(A, B, meta):
 # the registry
 # =============================================================================
 
-def test_and_table_equals_reference_field_by_field():
+def _check_and_table():
     assert len(TD.AND_TABLE) == len(JD.AND_TABLE) == 9
     for t, j in zip(TD.AND_TABLE, JD.AND_TABLE):
         for f in ("name", "kind_a", "kind_b", "kernel", "out", "swap",
@@ -75,7 +60,7 @@ def test_and_table_equals_reference_field_by_field():
         assert getattr(TD, name) == getattr(JD, name)
 
 
-def test_routing_predicates_match_reference():
+def _check_routing_predicates():
     ka, kb = np.meshgrid(np.arange(4), np.arange(4), indexing="ij")
     ka, kb = ka.ravel().astype(np.int32), kb.ravel().astype(np.int32)
     ca = np.array([0, 10, 5000, 300] * 4, np.int32)
@@ -97,7 +82,7 @@ def test_routing_predicates_match_reference():
         assert np.array_equal(np.asarray(a), b.numpy())
 
 
-def test_generated_cuda_cell_switch_encodes_the_table():
+def _check_generated_cuda_cell_switch():
     src = TK.and_table_source()
     ids = dict(re.findall(r"#define RK_(\w+) (\d+)", src))
 
@@ -118,20 +103,27 @@ def test_generated_cuda_cell_switch_encodes_the_table():
                 assert kid[a][b] == int(ids["NONE"]) == 0
 
 
+def test_registry_equals_reference():
+    """AND_TABLE field by field, the constants, the routing predicates, and
+    the CUDA kernel's generated cell switch."""
+    _check_and_table()
+    _check_routing_predicates()
+    _check_generated_cuda_cell_switch()
+
+
 # =============================================================================
 # intersect_dispatch: every kind pair, the 4095/4096/4097 boundaries
 # =============================================================================
 
-@pytest.mark.parametrize("name_a", CASES)
-def test_intersect_dispatch_every_kind_pair(rows, name_a):
-    A, B, meta = _pairs(rows, [name_a], CASES)
-    (hj, cj), (ht, ct) = _both(A, B, meta)
-    assert np.array_equal(hj, ht)
-    assert np.array_equal(cj, ct)
-
-
-def test_intersect_dispatch_cards_match_host_oracle(rows):
-    A, B, meta = _pairs(rows, CASES, CASES)
+def test_intersect_dispatch_every_kind_pair(rows):
+    """Every (kind, boundary) pair: hits and cards equal the reference's,
+    and the cards equal a host set-intersection oracle."""
+    for name_a in CASES:
+        A, B, meta = pair_grid(rows, [name_a], CASES)
+        (hj, cj), (ht, ct) = _both(A, B, meta)
+        assert np.array_equal(hj, ht), name_a
+        assert np.array_equal(cj, ct), name_a
+    A, B, meta = pair_grid(rows, CASES, CASES)
     _, ct = TR.intersect_dispatch_ref(to_t16(A), to_t16(B),
                                       torch.from_numpy(meta))
     vals = {n: set(_values(rows[n])) for n in CASES}
@@ -152,8 +144,8 @@ def _values(row):
     return []
 
 
-def test_stacked_entry_matches_reference(rows):
-    A, B, meta = _pairs(rows, CASES[:6], CASES[3:])
+def _check_stacked_entry(rows):
+    A, B, meta = pair_grid(rows, CASES[:6], CASES[3:])
     N, C = 6, A.shape[0] // 6
     A3, B3 = A.reshape(N, C, -1), B.reshape(N, C, -1)
     m2 = meta.reshape(N, 6 * C)
@@ -166,10 +158,10 @@ def test_stacked_entry_matches_reference(rows):
     assert np.array_equal(np.asarray(cj), ct.numpy())
 
 
-def test_card_only_stacked_reads_the_shared_query_once(rows):
+def _check_card_only_stacked(rows):
     """``stacked_and_card`` (query rows passed once) == the broadcast
     stacked entry's card."""
-    A, _, _ = _pairs(rows, CASES, CASES[:1])
+    A, _, _ = pair_grid(rows, CASES, CASES[:1])
     q_names = CASES[:3]
     N, C = A.shape[0] // 3, 3
     A3 = A[: N * C].reshape(N, C, -1)
@@ -186,6 +178,11 @@ def test_card_only_stacked_reads_the_shared_query_once(rows):
         jnp.asarray(A3), jnp.asarray(np.broadcast_to(q, A3.shape)),
         jnp.asarray(m2))
     assert np.array_equal(card.numpy(), np.asarray(want))
+
+
+def test_stacked_entries_equal_reference(rows):
+    _check_stacked_entry(rows)
+    _check_card_only_stacked(rows)
 
 
 def test_lifts_match_reference(rows):
@@ -211,8 +208,8 @@ def test_lifts_match_reference(rows):
 # entry-point plumbing (no card needed)
 # =============================================================================
 
-def test_launch_hooks_fire_before_the_fault_hook(rows):
-    A, B, meta = _pairs(rows, CASES[:2], CASES[:2])
+def _check_launch_hooks_fire_before_the_fault_hook(rows):
+    A, B, meta = pair_grid(rows, CASES[:2], CASES[:2])
     order = []
     hook = lambda ev: order.append(("launch", ev.entry, ev.backend))  # noqa
 
@@ -233,7 +230,7 @@ def test_launch_hooks_fire_before_the_fault_hook(rows):
                      ("fault", "torch")]
 
 
-def test_backend_scope_names_and_nesting():
+def _check_backend_scope_names_and_nesting():
     with pytest.raises(ValueError, match="unknown roaring backend"):
         with TOPS.backend_scope("pallas"):
             pass
@@ -245,8 +242,14 @@ def test_backend_scope_names_and_nesting():
         assert TOPS.current_backend("cpu") == "cuda"
 
 
-def test_cuda_wrappers_refuse_cpu_tensors(rows):
-    A, B, meta = _pairs(rows, CASES[:2], CASES[:2])
+def _check_cuda_wrappers_refuse_cpu_tensors(rows):
+    A, B, meta = pair_grid(rows, CASES[:2], CASES[:2])
     with pytest.raises(ValueError, match="CUDA tensor"):
         TK.intersect_dispatch_cuda(to_t16(A), to_t16(B),
                                    torch.from_numpy(meta))
+
+
+def test_entry_point_plumbing(rows):
+    _check_launch_hooks_fire_before_the_fault_hook(rows)
+    _check_backend_scope_names_and_nesting()
+    _check_cuda_wrappers_refuse_cpu_tensors(rows)

@@ -15,8 +15,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from _torch_parity import (KIND_CASES, container_row,  # noqa: F401
-                           release_jax_executables, to_np16, to_t16)
+from _torch_parity import (case_rows, release_jax_executables,  # noqa: F401
+                           to_np16, to_t16)
 from repro.kernels.roaring import fused as JF
 from repro_torch.kernels.roaring import fused as TF
 
@@ -39,8 +39,7 @@ def operands():
     """N=4 operands x C=10 columns of rows of every kind; column 9 is dead
     (every operand empty there), column 8 has one live operand."""
     rng = np.random.default_rng(SEED)
-    pool = [container_row(KIND_CASES[n][1](rng)) for n in sorted(KIND_CASES)]
-    pool.append(container_row([]))
+    pool = list(case_rows(rng).values())
     N, C = 4, 10
     kind = np.zeros((N, C), np.int32)
     card = np.zeros((N, C), np.int32)
@@ -56,7 +55,9 @@ def operands():
     return kind, card, nruns, data
 
 
-def test_plans_equal_reference_tape_for_tape():
+def test_plans_and_lift_meta_equal_reference(operands):
+    """Tapes, slot counts and the traffic model equal the reference's tape
+    for tape; bad trees are refused alike; the packed lift meta is equal."""
     for name, tree in TREES.items():
         pj, pt = JF.plan_tape(tree), TF.plan_tape(tree)
         assert pt.tape == pj.tape, name
@@ -70,16 +71,12 @@ def test_plans_equal_reference_tape_for_tape():
             assert row[0] == TF.TAPE_OPCODES[step[0]]
             assert row[3] == step[-1]
 
-
-def test_planner_rejects_bad_trees_like_reference():
     for bad in [("xor", 0, 1), ("andnot", 0, 1, 2), ("and",)]:
         with pytest.raises(ValueError):
             JF.plan_tape(bad)
         with pytest.raises(ValueError):
             TF.plan_tape(bad)
 
-
-def test_pack_lift_meta_equals_reference(operands):
     kind, card, nruns, _ = operands
     want = np.asarray(JF.pack_lift_meta(jnp.asarray(kind), jnp.asarray(card),
                                         jnp.asarray(nruns)))
@@ -89,18 +86,19 @@ def test_pack_lift_meta_equals_reference(operands):
     assert np.array_equal(want, got.numpy())
 
 
-@pytest.mark.parametrize("name", sorted(TREES))
-def test_fused_eval_ref_equals_reference(operands, name):
+def test_fused_eval_ref_equals_reference(operands):
     kind, card, nruns, data = operands
-    plan_j, plan_t = JF.plan_tape(TREES[name]), TF.plan_tape(TREES[name])
     meta = np.array(JF.pack_lift_meta(jnp.asarray(kind), jnp.asarray(card),
                                       jnp.asarray(nruns)))
-    bj, cj = _jax_fused(jnp.asarray(data), jnp.asarray(meta), plan=plan_j)
-    bt, ct = TF.fused_eval_ref(to_t16(data), torch.from_numpy(meta),
-                               plan=plan_t)
-    assert np.array_equal(np.asarray(bj), to_np16(bt))
-    assert np.array_equal(np.asarray(cj), ct.numpy())
-    assert ct[9] == 0 and not bt[9].any()                  # dead column
+    for name, tree in TREES.items():
+        plan_j, plan_t = JF.plan_tape(tree), TF.plan_tape(tree)
+        bj, cj = _jax_fused(jnp.asarray(data), jnp.asarray(meta), plan=plan_j)
+        bt, ct = TF.fused_eval_ref(to_t16(data), torch.from_numpy(meta),
+                                   plan=plan_t)
+        assert np.array_equal(np.asarray(bj), to_np16(bt)), name
+        assert np.array_equal(np.asarray(cj), ct.numpy()), name
+        assert ct[9] == 0 and not bt[9].any(), name        # dead column
+    _check_deep_plan_beyond_shared_memory(operands)
 
 
 def _np_members(kind, card, nruns, row):
@@ -126,7 +124,7 @@ def _np_tree(tree, leaves):
     return out
 
 
-def test_deep_plan_beyond_shared_memory_evaluates(operands):
+def _check_deep_plan_beyond_shared_memory(operands):
     """A right-nested 30-deep tree needs 31 slots (more than one block's
     shared memory holds on the card); its plan equals the reference's and
     the plain version agrees with a host numpy evaluation."""

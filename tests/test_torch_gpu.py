@@ -13,7 +13,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import KIND_CASES, container_row, cuda, to_t16  # noqa: F401
+from _torch_parity import (KIND_CASES, case_rows, cuda,  # noqa: F401
+                           pair_grid, to_t16)
 from repro_torch import search
 from repro_torch.kernels.roaring import fused as TF
 from repro_torch.kernels.roaring import kernel as TK
@@ -28,30 +29,18 @@ CASES = sorted(KIND_CASES) + ["empty"]
 
 @pytest.fixture(scope="module")
 def pairs():
-    rng = np.random.default_rng(SEED)
-    rows = {n: container_row(KIND_CASES[n][1](rng)) for n in sorted(KIND_CASES)}
-    rows["empty"] = container_row([])
-    A, B, meta = [], [], []
-    for na in CASES:
-        for nb in CASES:
-            ka, ca, ra, da = rows[na]
-            kb, cb, rb, db = rows[nb]
-            A.append(da)
-            B.append(db)
-            meta += [ka, kb, ca, cb, ra, rb]
-    return (to_t16(np.stack(A)), to_t16(np.stack(B)),
-            torch.tensor(meta, dtype=torch.int32))
+    A, B, meta = pair_grid(case_rows(np.random.default_rng(SEED)), CASES,
+                           CASES)
+    return to_t16(A), to_t16(B), torch.from_numpy(meta)
 
 
-def test_dispatch_kernel_every_kind_pair(pairs, cuda):
+def test_dispatch_kernel_every_kind_pair_and_shared_query(pairs, cuda):
+    """Hits and cards of every kind pair; then the card-only stacked launch
+    that reads one shared query's rows by ``row % C``."""
     A, B, meta = pairs
     ht, ct = TR.intersect_dispatch_ref(A, B, meta)
     hk, ck = TK.intersect_dispatch_cuda(A.to(cuda), B.to(cuda), meta.to(cuda))
     assert torch.equal(hk.cpu(), ht) and torch.equal(ck.cpu(), ct)
-
-
-def test_card_only_stacked_kernel_with_shared_query(pairs, cuda):
-    A, B, meta = pairs
     C = len(CASES)                  # b rows 0..C-1 are row 0's partners
     q = B[:C].contiguous()
     m = meta.reshape(-1, 6).clone()
@@ -76,9 +65,8 @@ def _deep_tree(depth):
     return tree
 
 
-@pytest.mark.parametrize("tree", TREES + [_deep_tree(30)],
-                         ids=lambda t: str(TF.plan_tape(t).n_slots) + "slots")
-def test_fused_kernel_matches_plain_version(pairs, tree, cuda):
+def test_fused_kernel_matches_plain_version(pairs, cuda):
+    """Trees of depth 1-5 and a 31-slot plan beyond shared memory."""
     A, B, meta = pairs
     m = meta.reshape(-1, 6)
     N, C = 4, 20
@@ -89,10 +77,13 @@ def test_fused_kernel_matches_plain_version(pairs, tree, cuda):
     kind[:, C - 1] = 0                                  # one dead column
     lm = TF.pack_lift_meta(kind.contiguous(), card.contiguous(),
                            nr.contiguous())
-    plan = TF.plan_tape(tree)
-    bt, ct = TF.fused_eval_ref(ops.contiguous(), lm, plan=plan)
-    bk, ck = TK.fused_eval_cuda(ops.contiguous().to(cuda), lm.to(cuda), plan)
-    assert torch.equal(bk.cpu(), bt) and torch.equal(ck.cpu(), ct)
+    for tree in TREES + [_deep_tree(30)]:
+        plan = TF.plan_tape(tree)
+        bt, ct = TF.fused_eval_ref(ops.contiguous(), lm, plan=plan)
+        bk, ck = TK.fused_eval_cuda(ops.contiguous().to(cuda), lm.to(cuda),
+                                    plan)
+        assert torch.equal(bk.cpu(), bt) and torch.equal(ck.cpu(), ct), \
+            plan.n_slots
 
 
 def test_service_on_card_equals_service_on_cpu(cuda):

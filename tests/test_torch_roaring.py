@@ -79,19 +79,27 @@ def _same_slab(js, ts):
     assert np.array_equal(np.asarray(js.data), to_np16(ts.data))
 
 
-@pytest.mark.parametrize("seed", [0, 1, 2])
-def test_finalize_rows_bytes_equal_reference(seed):
-    keys, data, card, kind = _row_states(seed)
-    js = jr._finalize_rows(jnp.asarray(keys), jnp.asarray(data),
-                           jnp.asarray(card), jnp.asarray(kind))
-    ts = tr._finalize_rows(*_t_state(keys, data, card, kind))
-    _same_slab(js, ts)
-    want = JRG.RoaringFormatSpec.serialize(jr.to_roaring(js))
-    assert RoaringFormatSpec.serialize(tr.to_roaring(ts)) == want
+def test_finalize_rows_bytes_equal_reference():
+    for seed in (0, 1, 2):
+        keys, data, card, kind = _row_states(seed)
+        js = jr._finalize_rows(jnp.asarray(keys), jnp.asarray(data),
+                               jnp.asarray(card), jnp.asarray(kind))
+        ts = tr._finalize_rows(*_t_state(keys, data, card, kind))
+        _same_slab(js, ts)
+        want = JRG.RoaringFormatSpec.serialize(jr.to_roaring(js))
+        assert RoaringFormatSpec.serialize(tr.to_roaring(ts)) == want, seed
 
 
-@pytest.mark.parametrize("op", ["and", "or", "andnot"])
-def test_combine_steps_equal_reference(op):
+def test_row_algebra_equals_reference():
+    """The combine steps, the deferred OR with its recount, the run counts
+    and the row conversions."""
+    for op in ("and", "or", "andnot"):
+        _check_combine_step(op)
+    _check_deferred_or_and_recount()
+    _check_rows_nruns_and_conversions()
+
+
+def _check_combine_step(op):
     _, da, ca, ka = _row_states(10)
     _, db, cb, kb = _row_states(11)
     jf = {"and": jr._and_rows, "or": jr._or_rows,
@@ -108,7 +116,7 @@ def test_combine_steps_equal_reference(op):
     assert np.array_equal(jd, to_np16(td))
 
 
-def test_deferred_or_and_recount_equal_reference():
+def _check_deferred_or_and_recount():
     _, da, ca, ka = _row_states(12)
     _, db, cb, kb = _row_states(13)
     j = jr._or_rows_deferred(*(jnp.asarray(x) for x in (da, ca, ka, db, cb,
@@ -122,7 +130,7 @@ def test_deferred_or_and_recount_equal_reference():
     assert np.array_equal(np.asarray(jc), tc.numpy())
 
 
-def test_rows_nruns_and_conversions_equal_reference():
+def _check_rows_nruns_and_conversions():
     keys, data, card, kind = _row_states(14)
     assert np.array_equal(
         np.asarray(jr._rows_nruns(jnp.asarray(data), jnp.asarray(kind))),
@@ -155,7 +163,27 @@ def _oracle_bitmaps(seed, n=6):
     return out
 
 
-def test_from_roaring_serialize_equals_reference():
+def test_slab_and_codec_equal_reference():
+    """``from_roaring`` and ``from_numpy`` give the reference's leaves and
+    serialized bytes; the golden corpus replays byte-exact through the
+    port's codec; no device means the card."""
+    _check_from_roaring_serialize()
+    _check_from_numpy_carries_reference_bytes()
+    goldens = sorted(p for p in CORPUS.glob("golden_*.bin")
+                     if not p.name.startswith("golden_store"))
+    assert len(goldens) == 5
+    for path in goldens:
+        data = path.read_bytes()
+        rb = RoaringFormatSpec.deserialize(data)
+        assert RoaringFormatSpec.serialize(rb) == data, path.name
+        assert JRG.RoaringFormatSpec.serialize(
+            JRG.RoaringFormatSpec.deserialize(data)) == data, path.name
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            RoaringSlab.from_roaring(tpr.RoaringBitmap(), 1)
+
+
+def _check_from_roaring_serialize():
     for vals in _oracle_bitmaps(SEED):
         jb = jpr.RoaringBitmap.from_sorted_unique(vals).run_optimize()
         tb = tpr.RoaringBitmap.from_sorted_unique(vals).run_optimize()
@@ -171,7 +199,7 @@ def test_from_roaring_serialize_equals_reference():
         assert int(ts.card()) == vals.size
 
 
-def test_from_numpy_carries_reference_bytes():
+def _check_from_numpy_carries_reference_bytes():
     vals = _oracle_bitmaps(SEED + 1, n=1)[0]
     js = JRG.RoaringSlab.from_roaring(
         jpr.RoaringBitmap.from_sorted_unique(vals).run_optimize(), 10)
@@ -181,23 +209,6 @@ def test_from_numpy_carries_reference_bytes():
     with pytest.raises(ValueError, match="payload"):
         RoaringSlab.from_numpy(js.keys, js.kinds, js.cards, js.nruns,
                                np.zeros((3, 4096), np.uint16), device="cpu")
-
-
-@pytest.mark.parametrize("name", sorted(p.name for p in CORPUS.glob(
-    "golden_*.bin") if not p.name.startswith("golden_store")))
-def test_golden_corpus_replays_byte_exact(name):
-    data = (CORPUS / name).read_bytes()
-    rb = RoaringFormatSpec.deserialize(data)
-    assert RoaringFormatSpec.serialize(rb) == data
-    assert JRG.RoaringFormatSpec.serialize(
-        JRG.RoaringFormatSpec.deserialize(data)) == data
-
-
-def test_no_device_means_the_card():
-    if torch.cuda.is_available():
-        pytest.skip("a card is present: the default device is usable")
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        RoaringSlab.from_roaring(tpr.RoaringBitmap(), 1)
 
 
 # =============================================================================
@@ -231,10 +242,11 @@ def _build(mod, tree):
             "andnot": lambda a, b: mod.andnot(a, b)}[tree[0]](*kids)
 
 
-def test_execute_equals_reference_bytes(stacks):
+def test_execute_equals_reference_and_host_oracle(stacks):
     """The reference's fused result (its own tests hold it equal to its
     per-op path) == the port's per-op and fused results as bytes, and the
-    fused payload word for word."""
+    fused payload word for word; every tree, per-op and fused, equals the
+    host oracle in bytes and card."""
     jstack, tstack = stacks
     je = _build(JIX, EXPRS["mixed"])
     te = _build(TIX, EXPRS["mixed"])
@@ -246,6 +258,9 @@ def test_execute_equals_reference_bytes(stacks):
     # for word
     assert np.array_equal(np.asarray(jo.payload), to_np16(to.payload))
     assert TIX.launch_model(te) == JIX.launch_model(je)
+    for name in sorted(EXPRS):
+        for fused in (False, True):
+            _check_execute_against_host_oracle(tstack, name, fused)
 
 
 def _oracle_eval(tree, bms):
@@ -260,16 +275,13 @@ def _oracle_eval(tree, bms):
     return out
 
 
-@pytest.mark.parametrize("fused", [False, True], ids=["per_op", "fused"])
-@pytest.mark.parametrize("name", sorted(EXPRS))
-def test_execute_matches_host_oracle(stacks, name, fused):
-    _, tstack = stacks
+def _check_execute_against_host_oracle(tstack, name, fused):
     bms = [tstack[i].to_roaring() for i in range(tstack.n_slabs)]
     want = _oracle_eval(EXPRS[name], bms)
     te = _build(TIX, EXPRS[name])
     got = TIX.execute(tstack, te, fused=fused)
-    assert got.serialize() == RoaringFormatSpec.serialize(want)
-    assert int(TIX.execute_card(tstack, te, fused=fused)) == len(want)
+    assert got.serialize() == RoaringFormatSpec.serialize(want), name
+    assert int(TIX.execute_card(tstack, te, fused=fused)) == len(want), name
 
 
 def test_topk_by_card_equals_reference_with_ties(stacks):

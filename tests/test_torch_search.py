@@ -122,26 +122,38 @@ PATHS = {"fused_batched": dict(fused=True, max_batch=4),
          "per_op_sequential": dict(fused=False, max_batch=1)}
 
 
-@pytest.mark.parametrize("mode", ["count", "docs", "topk"])
-@pytest.mark.parametrize("path", sorted(PATHS))
-def test_service_equals_reference_service(corpus, reference_answers, path,
-                                          mode):
+def test_service_equals_reference_service(corpus, reference_answers):
+    """Fused and per-op, batched and sequential: every mode answers as the
+    reference service and the numpy oracle do."""
     _, tidx, postings = corpus
-    svc = TS.SearchService(tidx, cache_slots=16, **PATHS[path])
     qs = _queries(TS)
-    got = svc.search_many(qs, mode, k=5)
-    want = reference_answers[mode]
-    if mode == "docs":
-        for q, a, b in zip(qs, got, want):
-            assert np.array_equal(a, np.asarray(b))
-            assert np.array_equal(a, np.nonzero(_np_eval(q, postings))[0])
-    else:
-        assert got == want
-    if mode == "count":
-        assert got == [int(_np_eval(q, postings).sum()) for q in qs]
+    for path in sorted(PATHS):
+        for mode in ("count", "docs", "topk"):
+            svc = TS.SearchService(tidx, cache_slots=16, **PATHS[path])
+            got = svc.search_many(qs, mode, k=5)
+            want = reference_answers[mode]
+            if mode == "docs":
+                for q, a, b in zip(qs, got, want):
+                    assert np.array_equal(a, np.asarray(b)), (path, q)
+                    assert np.array_equal(
+                        a, np.nonzero(_np_eval(q, postings))[0]), (path, q)
+            else:
+                assert got == want, (path, mode)
+            if mode == "count":
+                assert got == [int(_np_eval(q, postings).sum()) for q in qs]
 
 
-def test_cache_warm_rerun_is_identical(corpus):
+def test_cache_lru_and_backpressure(corpus):
+    """A cache-warm rerun is identical and all hits; the LRU evicts in
+    order within its capacity and counts exactly; the term budget defers
+    what does not fit."""
+    _check_cache_warm_rerun_is_identical(corpus)
+    obs.reset_metrics()                 # the cache counters are global
+    _check_lru_eviction_order_capacity_and_counters(corpus)
+    _check_term_budget_backpressure_requeues(corpus)
+
+
+def _check_cache_warm_rerun_is_identical(corpus):
     _, tidx, _ = corpus
     svc = TS.SearchService(tidx, max_batch=8, cache_slots=16)
     qs = _queries(TS)
@@ -153,7 +165,7 @@ def test_cache_warm_rerun_is_identical(corpus):
     assert svc.cache_stats()["misses"] == misses        # all hits
 
 
-def test_lru_eviction_order_capacity_and_counters(corpus):
+def _check_lru_eviction_order_capacity_and_counters(corpus):
     _, tidx, _ = corpus
     svc = TS.SearchService(tidx, max_batch=1, cache_slots=3)
     t = TS.term
@@ -169,7 +181,7 @@ def test_lru_eviction_order_capacity_and_counters(corpus):
         svc.submit(TS.and_(t("t00"), t("t01"), t("t02"), t("t03")))
 
 
-def test_term_budget_backpressure_requeues(corpus):
+def _check_term_budget_backpressure_requeues(corpus):
     _, tidx, postings = corpus
     t = TS.term
     svc = TS.SearchService(tidx, max_batch=4, cache_slots=4)
@@ -182,10 +194,10 @@ def test_term_budget_backpressure_requeues(corpus):
         assert svc.take(rid) == int(_np_eval(q, postings).sum())
 
 
-def test_fault_injected_ladder_reaches_the_torch_rung(corpus):
+def test_ladder_drops_a_rung_only_for_injected_faults(corpus):
     """Faults injected on the "cuda" backend fire before any launch; on CPU
     tensors the ladder then lands on the plain-torch rung with the same
-    answers."""
+    answers. Any other error propagates without a fallback."""
     _, tidx, postings = corpus
     qs = _queries(TS)[:4]
     svc = TS.SearchService(tidx, max_batch=4, backend="cuda")
@@ -199,9 +211,7 @@ def test_fault_injected_ladder_reaches_the_torch_rung(corpus):
     assert reg.total("index.rung_taken", backend="torch") > 0
     assert reg.total("index.fallbacks") > 0
 
-
-def test_ladder_propagates_errors_that_are_not_injected(corpus):
-    _, tidx, _ = corpus
+    obs.reset_metrics()
     svc = TS.SearchService(tidx, max_batch=4, backend="cuda")
 
     def hook(backend):
@@ -242,7 +252,14 @@ def test_batched_launch_count_matches_model(corpus):
     assert {"search.plan", "search.cache", "search.execute"} <= names
 
 
-def test_unknown_term_bad_mode_and_default_device(corpus):
+def test_service_edges_and_loadgen(corpus):
+    """Unknown terms, a bad mode, the default device; the load generator
+    and its corpus law equal the reference's."""
+    _check_unknown_term_bad_mode_and_default_device(corpus)
+    _check_loadgen_matches_reference(corpus)
+
+
+def _check_unknown_term_bad_mode_and_default_device(corpus):
     _, tidx, postings = corpus
     svc = TS.SearchService(tidx)
     assert svc.search(TS.term("missing"), "count") == 0
@@ -255,7 +272,7 @@ def test_unknown_term_bad_mode_and_default_device(corpus):
             TS.PostingIndex.from_postings(postings, N_DOCS)
 
 
-def test_loadgen_matches_reference(corpus):
+def _check_loadgen_matches_reference(corpus):
     from benchmarks.synth import gen_zipf_postings as j_gen
     for a, b in zip(j_gen(20, 50_000, 1.1, 7),
                     TS.gen_zipf_postings(20, 50_000, 1.1, 7)):
@@ -280,7 +297,14 @@ def _port_files():
         [ROOT / "chip_smoke.py"]
 
 
-def test_port_imports_no_jax_and_nothing_of_repro():
+def test_import_guard():
+    """No module of the port, and not ``chip_smoke.py``, imports JAX or
+    the reference package; the port imports with both blocked."""
+    _check_no_jax_or_repro_import_statements()
+    _check_imports_with_jax_and_repro_blocked()
+
+
+def _check_no_jax_or_repro_import_statements():
     bad = []
     for f in _port_files():
         for node in ast.walk(ast.parse(f.read_text(), str(f))):
@@ -296,7 +320,7 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     assert not bad, bad
 
 
-def test_port_imports_with_jax_and_repro_blocked():
+def _check_imports_with_jax_and_repro_blocked():
     code = (
         "import importlib.abc, sys\n"
         "class Block(importlib.abc.MetaPathFinder):\n"
