@@ -3,17 +3,24 @@
 
     python3 chip_smoke.py [--terms N] [--seed S]
 
-Builds the hand-written CUDA kernels from ``src/repro_torch``, holds each
-against its plain-torch version on the card (bit-identical: the outputs are
-integers), then drives the search service end to end at full size — an
-index shaped like the MS MARCO passage-ranking corpus (8,841,823 documents,
-C = 135 chunk rows per term) over a 2,048-term Zipf vocabulary — in modes
-count / docs / topk, fused and per-op, and checks sampled answers against
-an independent numpy oracle. It then times each kernel on the inputs the
-main path gave it, and profiles one warm window per mode to show where the
-time goes (host spans, device busy share, top device work). The line
-before the last is one JSON object describing every kernel; the last line
-is the device contract.
+Builds the hand-written CUDA kernels from ``src/repro_torch`` and holds
+each against its plain-torch version on the card. Then it drives the two
+paths of the port end to end:
+
+* the search service at full size — an index shaped like the MS MARCO
+  passage-ranking corpus (8,841,823 documents, C = 135 chunk rows per term)
+  over a 2,048-term Zipf vocabulary — in modes count / docs / topk, fused
+  and per-op, checking sampled answers against an independent numpy
+  oracle;
+* LM serving on the Roaring-paged KV cache at gemma2-2b's full width and
+  depth (random weights from a seeded generator): 8 short requests and one
+  whose prompt runs past the 4,096-token sliding window, each checked
+  against greedy decoding over the port's own teacher-forced ``forward``.
+
+It then times each kernel on the inputs its path gave it, and profiles warm
+windows to show where the time goes (host spans, device busy share, top
+device work). The line before the last is one JSON object describing every
+kernel; the last line is the device contract.
 
 Exits non-zero, printing no result, when no CUDA card is present or any
 phase fails. Imports nothing of JAX and nothing of the reference package.
@@ -39,6 +46,29 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (NVIDIA data sheet)
 # integer / bit work runs on the CUDA cores; the card's published
 # non-tensor peak (67 TFLOP/s fp32, H100 SXM) bounds it
 SCALAR_OPS_PER_S = 67e12
+# bf16 dense tensor-core peak (H100 SXM): the least time for bf16 inputs
+BF16_OPS_PER_S = 989e12
+L2_BYTES = 50 * 2 ** 20
+
+# the serving phase: gemma2-2b at full width and depth
+SERVE_ARCH = "gemma2-2b"
+SERVE_ENGINE = dict(max_batch=4, n_pages=1024, page_size=16,
+                    max_pages_per_seq=320)
+SERVE_NEW = 16
+# one prompt past the 4,096-token window, so local layers decode with
+# starts > 0; its teacher-forced length 4,201 + 15 = 4,216 is off the
+# multiples of 512 where forward would take the unported blocked branch
+LONG_PROMPT = 4201
+# greedy check: a step whose top-2 logit gap in the teacher-forced forward
+# is below this is a near-tie (bf16 compute rounds at other places in the
+# decode path and the teacher-forced path, and the engine's logits stay
+# within ~2.5e-3 of forward's), reported and not compared; forward is fed
+# the engine's own tokens, so the steps after a near-tie stay comparable
+GAP_TOL = 1e-2
+# paged decode against its plain version: bf16 outputs, one rounding apart
+# (one ulp is 2**-7 below magnitude 2)
+BF16_ATOL = 1e-2
+F32_ATOL = 1e-5
 
 # where each ported kernel replaces a TPU kernel
 KERNELS = {
@@ -51,6 +81,9 @@ KERNELS = {
     "fused_tree": (
         "src/repro_torch/kernels/roaring/csrc/fused_eval.cu",
         "src/repro/kernels/roaring/fused.py:232"),
+    "paged_decode": (
+        "src/repro_torch/kernels/sparse_attn/csrc/paged_decode.cu",
+        "src/repro/kernels/sparse_attn/kernel.py:179"),
 }
 
 
@@ -564,15 +597,386 @@ def _max_err(torch, got, want):
     return err
 
 
-def _row(name, launches, err, ms, pms, bound, shape):
+def _row(name, launches, err, ms, pms, bound, shape, library=None):
     src, replaces = KERNELS[name]
+    lib_ms, lib_what = library or (None, "none")
     log(f"{name}: {ms:.4f} ms (plain {pms:.3f} ms, bound {bound[0]:.4f} ms "
         f"by {bound[1]}) at {shape}; launches {launches[name]}; "
-        "library call: none")
+        f"library call: {lib_what}" + (f" {lib_ms:.4f} ms" if lib_ms else ""))
     return {"name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": int(launches[name]),
             "max_abs_err": err, "ms": ms, "plain_ms": pms,
-            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
+            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": lib_ms}
+
+
+# =============================================================================
+# LM serving on the Roaring-paged KV cache
+# =============================================================================
+
+def check_paged_decode(torch, pd_cases, SK, SR, seed):
+    """The paged decode kernel against its plain version over
+    ``cases.CHECK_GRID`` (G 1 / 2, D 64 / 256, pages of 8 / 16, softcap on
+    and off), in bf16 and f32: rows with ``starts > 0``, an empty row
+    (``counts = 0``, which must give zeros) and NaN in every page after a
+    row's ``counts``."""
+    rng = np.random.default_rng(seed)
+    worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    for G, D, page, softcap in pd_cases.CHECK_GRID:
+        c = pd_cases.paged_decode_case(rng, G, D, page)
+        t = {k: torch.from_numpy(v).cuda() for k, v in c.items()}
+        args = tuple(t[k] for k in ("page_idx", "counts", "lengths",
+                                    "starts"))
+        for dtype in worst:
+            q, kp, vp = (t[k].to(dtype) for k in ("q", "k_pages", "v_pages"))
+            got = SK.paged_decode_cuda(q, kp, vp, *args, softcap=softcap)
+            want = SR.paged_decode_ref(q, kp, vp, *args, softcap=softcap)
+            torch.cuda.synchronize()
+            if (got.dtype != dtype or not bool(torch.isfinite(got).all())
+                    or bool(got[t["counts"] == 0].any())):
+                raise AssertionError(f"paged_decode G={G} D={D} page={page}"
+                                     f" {dtype}: non-finite output or a "
+                                     "non-zero empty row")
+            err = (got.float() - want.float()).abs().max().item()
+            worst[dtype] = max(worst[dtype], err)
+    log(f"check paged_decode: {len(pd_cases.CHECK_GRID)} cases x (bf16, "
+        f"f32); max abs err {worst[torch.bfloat16]:.3g} (bf16, tolerance "
+        f"{BF16_ATOL}), {worst[torch.float32]:.3g} (f32, tolerance "
+        f"{F32_ATOL}); empty rows zero, NaN pages after counts never read")
+    if worst[torch.bfloat16] > BF16_ATOL or worst[torch.float32] > F32_ATOL:
+        raise AssertionError("paged_decode disagrees with its plain version")
+    return worst[torch.bfloat16]
+
+
+def serve_path(torch, T, SV, LS, SK, cfg, seed, device="cuda"):
+    """gemma2-2b at full width and depth behind ``ServeEngine``: 8 short
+    requests (``launch/serve.py``'s traffic) and one with a prompt past the
+    sliding window. Checks every request against greedy over the port's
+    own teacher-forced ``forward``, one ``paged_decode`` launch per layer
+    per step, and every page back in the pool. Returns what the kernel row
+    needs: the launch count, the host page lists of the step with the most
+    live positions, and the engine (its pools)."""
+    t0 = time.perf_counter()
+    cuda = device == "cuda"
+    params = T.init_lm(cfg, seed, device=device)
+    if cuda:
+        torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"serve model: {cfg.name}, {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} KV heads of "
+        f"{cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, window {cfg.window}; "
+        f"{n_params / 1e9:.3f} B parameters, "
+        f"{sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9:.2f}"
+        f" GB ({cfg.param_dtype}, compute {cfg.compute_dtype}); init "
+        f"{time.perf_counter() - t0:.1f} s")
+    eng = SV.ServeEngine(cfg, params, device=device, **SERVE_ENGINE)
+    rng = np.random.default_rng(seed)
+    reqs = [SV.Request(req_id=0, prompt=rng.integers(
+        1, cfg.vocab, LONG_PROMPT).astype(np.int32),
+        max_new_tokens=SERVE_NEW)]
+    for r in LS.make_requests(cfg, 8, SERVE_NEW, seed):
+        r.req_id += 1
+        reqs.append(r)
+
+    # bookkeeping inside the timed run, with no host sync: per step the
+    # request it advances and that row's top-2 logits (one small top-k on
+    # the card), and the host page lists of the step with the most live
+    # positions
+    steps, tops, largest = [], [], [0, None]
+    orig_advance, orig_batch = eng._advance, eng._batch_arrays
+    orig_decode = T.decode_step_paged
+
+    def advance(slot, token, sample):
+        steps.append((eng.slots[slot], sample))
+        return orig_advance(slot, token, sample)
+
+    def batch_arrays():
+        out = orig_batch()
+        if int(out[2].sum()) > largest[0]:
+            largest[:] = [int(out[2].sum()), tuple(a.copy() for a in out)]
+        return out
+
+    def decode(*args, write=None, **kw):
+        logits, pools = orig_decode(*args, write=write, **kw)
+        rows = torch.nonzero(write).flatten().to(logits.device)
+        tops.append(torch.topk(logits[rows, 0].float(), 2))
+        return logits, pools
+
+    eng._advance, eng._batch_arrays = advance, batch_arrays
+    T.decode_step_paged = decode
+    try:
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        SK.reset_launch_counts()
+        wall, peak_util = LS.serve(eng, reqs)
+        launches = dict(SK.launch_counts)
+    finally:
+        T.decode_step_paged = orig_decode
+        del eng._advance, eng._batch_arrays
+    peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else float("nan")
+    if len(tops) != len(steps):
+        raise AssertionError("a step ran no decode")
+
+    n_steps = eng.steps_run
+    fed = sum(len(r.prompt) - 1 + len(r.generated) for r in reqs)
+    gen = sum(len(r.generated) for r in reqs)
+    card = card_line() if cuda else device
+    log(f"serve: {len(reqs)} requests (prompts {len(reqs[0].prompt)} and "
+        f"{min(len(r.prompt) for r in reqs[1:])}-"
+        f"{max(len(r.prompt) for r in reqs[1:])} tokens, {SERVE_NEW} new "
+        f"each), max_batch {eng.max_batch}, page_size {eng.page_size}: "
+        f"{n_steps} steps ({fed} tokens fed, {gen} generated) in {wall:.2f} "
+        f"s = {gen / wall:.2f} generated tokens/s, {fed / wall:.1f} fed "
+        f"tokens/s, {1e3 * wall / n_steps:.2f} ms per step; peak page "
+        f"utilization {peak_util:.2%}; max_memory_allocated {peak:.2f} GB "
+        f"({card})")
+    if not all(r.done and len(r.generated) == SERVE_NEW for r in reqs):
+        raise AssertionError("a request did not finish")
+    if eng.requeues or n_steps != fed:
+        raise AssertionError(f"{eng.requeues} requeues, {n_steps} steps for "
+                             f"{fed} fed tokens")
+    check_greedy(torch, T, cfg, params, reqs, steps, tops)
+    want = cfg.n_layers * n_steps
+    log(f"launches on the serve path: {launches}; {cfg.n_layers} layers x "
+        f"{n_steps} steps = {want}")
+    if launches["paged_decode"] != want:
+        raise AssertionError("paged_decode was not launched once per layer "
+                             "per decode step")
+    if eng.table.seq_pages or len(eng.table.free) != eng.table.n_pages:
+        raise AssertionError("pages leaked: not every page is back in the "
+                             "pool")
+    log(f"pages: all {eng.table.n_pages} back in the pool")
+    return launches, largest[1], eng, params
+
+
+def check_greedy(torch, T, cfg, params, reqs, steps, tops):
+    """Every request's tokens against argmax over the port's teacher-forced
+    ``forward`` of its prompt and its own tokens, at every step but the
+    near-ties (top-2 gap under ``GAP_TOL``), which are reported. Also
+    reports how far the engine's top logit is from ``forward``'s logit for
+    the same token."""
+    top_vals = torch.cat([t.values for t in tops]).cpu().numpy()
+    sampled = {}
+    for i, (rid, is_sample) in enumerate(steps):
+        if is_sample:
+            sampled.setdefault(rid, []).append(i)
+    compared = total = 0
+    near, worst = [], 0.0
+    t = time.perf_counter()
+    long = [r for r in reqs if len(r.prompt) > 512]     # padding the short
+    short = [r for r in reqs if len(r.prompt) <= 512]   # ones to it wastes
+    for group in (long, short):
+        if not group:
+            continue
+        seqs = [np.concatenate([r.prompt, r.generated[:-1]]) for r in group]
+        tokens = np.zeros((len(seqs), max(map(len, seqs))), np.int64)
+        for i, sq in enumerate(seqs):       # causal: the tail padding never
+            tokens[i, :len(sq)] = sq        # reaches an earlier position
+        logits, _ = T.forward(params, torch.from_numpy(tokens).to(
+            params["final_norm"]["scale"].device), cfg)
+        for i, r in enumerate(group):
+            a = len(r.prompt) - 1
+            f = logits[i, a:a + len(r.generated)].float()
+            top2 = torch.topk(f, 2)
+            gap = (top2.values[:, 0] - top2.values[:, 1]).cpu().numpy()
+            arg = top2.indices[:, 0].cpu().numpy()
+            tok = torch.as_tensor(r.generated, device=f.device)
+            at_tok = f.gather(1, tok[:, None])[:, 0].cpu().numpy()
+            eng_top = top_vals[sampled[r.req_id], 0]
+            worst = max(worst, float(np.abs(eng_top - at_tok).max()))
+            total += len(r.generated)
+            for k, g in enumerate(r.generated):
+                if gap[k] < GAP_TOL:
+                    near.append((r.req_id, k, round(float(gap[k]), 5),
+                                 g == int(arg[k])))
+                    continue
+                if g != int(arg[k]):
+                    raise AssertionError(
+                        f"request {r.req_id} step {k}: engine token {g}, "
+                        f"teacher-forced greedy {int(arg[k])} (top-2 gap "
+                        f"{gap[k]:.4g}, engine top logit {eng_top[k]:.4g}, "
+                        f"forward's logit for it {at_tok[k]:.4g})")
+                compared += 1
+        del logits
+    log(f"greedy: {compared} of {total} steps equal argmax over the "
+        f"teacher-forced forward (gap tolerance {GAP_TOL}); near-ties not "
+        f"compared (request, step, gap, equal anyway): {near}; max "
+        f"|engine top logit - forward logit for that token| {worst:.4g}; "
+        f"forward {time.perf_counter() - t:.1f} s")
+
+
+def serve_profile(torch, SV, LS, obs, cfg, params, eng, seed):
+    """One warm window of 4 short requests under ``torch.profiler`` with
+    the engine's spans on: the ``serve.step`` host time, device busy time
+    (kernels and copies; one stream) against the window's wall time, and
+    the work that takes the device time. The profiler and the spans add
+    host time, so the idle share is an upper bound."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    LS.serve(eng, LS.make_requests(cfg, 2, 8, seed + 1))       # warm
+    obs.reset_traces()
+    reqs = LS.make_requests(cfg, 4, 8, seed + 2)
+    steps = eng.steps_run
+    with obs.telemetry_scope(True), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        wall, _ = LS.serve(eng, reqs)
+    n = eng.steps_run - steps
+    span_ms = sum(sp.duration_s for sp in obs.span_trees()
+                  if sp.name == "serve.step") * 1e3
+    dev = {}
+    for e in p.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            dev[e.key] = dev.get(e.key, 0.0) + e.self_device_time_total / 1e3
+    busy = sum(dev.values())
+    wall_ms = wall * 1e3
+    top = sorted(dev.items(), key=lambda kv: -kv[1])[:6]
+    device = (f"device busy {busy:.2f} ms = {100 * busy / wall_ms:.1f} % of "
+              f"wall (idle {100 - 100 * busy / wall_ms:.1f} %); top device "
+              "work: " + "; ".join(f"{k[:60]} {v:.2f} ms" for k, v in top)
+              if busy > 0 else "device time not measured (the profiler saw "
+              "no device activity)")
+    log(f"profile serve: 4 requests in {n} steps, wall {wall_ms:.1f} ms "
+        f"({wall_ms / n:.2f} ms per step); serve.step spans {span_ms:.1f} "
+        f"ms; {device} ({card_line()})")
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def time_cold_ms(torch, fn, iters, flush):
+    """Mean ms of ``fn`` by CUDA events around each call alone, with the L2
+    cache overwritten before each (the serving path reads each layer's KV
+    after the other layers' weights have passed through it)."""
+    fn()
+    torch.cuda.synchronize()
+    marks = []
+    for _ in range(iters):
+        flush.zero_()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        marks.append((a, b))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in marks) / iters
+
+
+def paged_decode_bound(q, page_idx, counts, kv_len, starts, page_size):
+    """(bound_ms, bound_by) of one paged decode launch: each live position's
+    K and V rows read once, each page id of a live page, q and the
+    per-row scalars read once, out written once; QK and PV at 2 operations
+    per multiply-add over the bf16 tensor-core peak."""
+    B, KVH, G, D = q.shape
+    item = q.element_size()
+    lo = np.maximum(starts, 0)
+    hi = np.minimum(kv_len, counts * page_size)
+    live = np.maximum(hi - lo, 0)
+    pages = np.where(hi > lo, -(-hi // page_size) - lo // page_size, 0)
+    nbytes = (int(live.sum()) * 2 * KVH * D * item + 2 * B * KVH * G * D * item
+              + 4 * int(pages.sum()) + 12 * B)
+    ops = int(live.sum()) * KVH * G * D * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / BF16_OPS_PER_S * 1e3
+    return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"),
+            int(live.sum()))
+
+
+def measure_paged_decode(torch, SK, SR, q, kp, vp, page_idx, counts, kv_len,
+                         starts, softcap, iters, flush):
+    """Kernel, plain version and the library yardstick on one input: the
+    max abs error, their ms, the bound and the live positions. The
+    yardstick is ``scaled_dot_product_attention`` over K / V gathered into
+    contiguous [B, KVH, L, D] beforehand (the gather is not timed: no
+    single call does the page indirection) with the live mask, and without
+    the softcap, which it cannot apply."""
+    import torch.nn.functional as Fn
+    ps = kp.shape[1]
+    t = {k: torch.from_numpy(np.ascontiguousarray(v, np.int32)).cuda()
+         for k, v in (("page_idx", page_idx), ("counts", counts),
+                      ("kv_len", kv_len), ("starts", starts))}
+    args = (q, kp, vp, t["page_idx"], t["counts"], t["kv_len"], t["starts"])
+    got = SK.paged_decode_cuda(*args, softcap=softcap)
+    want = SR.paged_decode_ref(*args, softcap=softcap)
+    err = (got.float() - want.float()).abs().max().item()
+    if err > BF16_ATOL:
+        raise AssertionError(f"paged_decode disagrees with its plain version "
+                             f"(max abs err {err:.4g})")
+    del got, want
+    ms = time_cold_ms(torch, lambda: SK.paged_decode_cuda(
+        *args, softcap=softcap), iters, flush)
+    pms = time_cold_ms(torch, lambda: SR.paged_decode_ref(
+        *args, softcap=softcap), max(2, iters // 10), flush)
+    B, KVH, G, D = q.shape
+    L = int(counts.max()) * ps
+    pidx = t["page_idx"][:, :int(counts.max())].long()
+    k_seq = kp[pidx].reshape(B, L, KVH, D).transpose(1, 2).contiguous()
+    v_seq = vp[pidx].reshape(B, L, KVH, D).transpose(1, 2).contiguous()
+    pos = torch.arange(L, device=q.device)
+    live = ((pos[None] < t["kv_len"][:, None])
+            & (pos[None] >= t["starts"][:, None])
+            & (pos[None] < t["counts"][:, None] * ps))
+    mask = None if bool(live.all()) else live[:, None, None, :]
+    qh = q.reshape(B, KVH * G, 1, D)
+    lib = time_cold_ms(torch, lambda: Fn.scaled_dot_product_attention(
+        qh, k_seq, v_seq, attn_mask=mask, enable_gqa=True), iters, flush)
+    del k_seq, v_seq
+    bound, n_live = paged_decode_bound(q, page_idx, counts, kv_len, starts,
+                                       ps)
+    return err, ms, pms, lib, bound, n_live
+
+
+def paged_decode_rows(torch, SK, SR, cfg, eng, largest, launches, seed):
+    """The paged decode kernel at the serve path's largest launch (the
+    step with the most live positions, on a global layer, against the
+    engine's own pools; q drawn from a seed), and at ``decode_32k``'s
+    shape for one layer with the batch cut from 128 to 32."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    flush = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device="cuda")
+    B, KVH, hd = eng.max_batch, cfg.n_kv_heads, cfg.hd
+    G = cfg.n_heads // KVH
+    dt = eng.pools[0]["k"].dtype
+    page_idx, counts, lengths, _ = largest
+    kv_len = np.maximum(lengths - 1, 0) + 1
+    starts = np.zeros_like(kv_len)
+    j = cfg.block_kinds().index("attn_mlp")              # a global layer
+    q = torch.randn((B, KVH, G, hd), generator=gen, device="cuda").to(dt)
+    err, ms, pms, lib, bound, n_live = measure_paged_decode(
+        torch, SK, SR, q, eng.pools[j]["k"][0], eng.pools[j]["v"][0],
+        page_idx, counts, kv_len, starts, cfg.attn_softcap, 50, flush)
+    row = _row("paged_decode", launches, err, ms, pms, bound,
+               f"the serve path's largest launch: B = {B}, KVH = {KVH}, G = "
+               f"{G}, D = {hd}, page {eng.page_size}, lengths "
+               f"{kv_len.tolist()} ({n_live} live positions), bf16, softcap "
+               f"{cfg.attn_softcap}; cold L2",
+               (lib, "scaled_dot_product_attention (gather excluded, no "
+                "softcap)"))
+
+    Bc, L, ps = 32, 32_768, 16
+    n_pp = L // ps
+    P = Bc * n_pp
+    pidx = torch.randperm(P, generator=gen, device="cuda").to(torch.int32)
+    pidx = pidx.reshape(Bc, n_pp).cpu().numpy()
+    kp = torch.randn((P, ps, KVH, hd), generator=gen, device="cuda",
+                     dtype=dt)
+    vp = torch.randn((P, ps, KVH, hd), generator=gen, device="cuda",
+                     dtype=dt)
+    q = torch.randn((Bc, KVH, G, hd), generator=gen, device="cuda").to(dt)
+    full = np.full((Bc,), L, np.int32)
+    err, ms, pms, lib, bound, n_live = measure_paged_decode(
+        torch, SK, SR, q, kp, vp, pidx, np.full((Bc,), n_pp, np.int32), full,
+        np.zeros_like(full), cfg.attn_softcap, 10, flush)
+    log(f"paged_decode at decode_32k, one global layer, batch cut from 128 "
+        f"to {Bc} (KV {L} tokens, pools {2 * kp.numel() * kp.element_size() / 1e9:.2f} GB): "
+        f"{ms:.4f} ms (plain {pms:.3f} ms, bound {bound[0]:.4f} ms by "
+        f"{bound[1]}, scaled_dot_product_attention {lib:.4f} ms with the "
+        f"gather excluded and no softcap); max abs err {err:.3g}; "
+        f"{n_live} live positions ({card_line()})")
+    return row
 
 
 def main(argv=None) -> int:
@@ -595,7 +999,18 @@ def main(argv=None) -> int:
     from repro_torch.kernels.roaring import kernel as K
     from repro_torch.kernels.roaring import ops
     from repro_torch.kernels.roaring import ref
+    from repro_torch import serve as SV
+    from repro_torch.kernels.build import build
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.sparse_attn import cases as pd_cases
+    from repro_torch.kernels.sparse_attn import kernel as SK
+    from repro_torch.kernels.sparse_attn import ref as SR
+    from repro_torch.launch import serve as LS
+    from repro_torch.models import transformer as T
 
+    # float32 matmuls and convolutions in full float32 (no TF32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     log(card_line())
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -604,16 +1019,30 @@ def main(argv=None) -> int:
         log(f"CUT: vocabulary {args.terms} terms instead of {N_TERMS}")
 
     t = time.perf_counter()
-    K.build()
+    build()
     log(f"build: {time.perf_counter() - t:.1f} s (nvcc, sm_90a, in parallel)")
     log("kernels: " + json.dumps(list(KERNELS)))
 
     check_kernels(torch, cases, K, ops, ref, F, args.seed)
+    check_paged_decode(torch, pd_cases, SK, SR, args.seed)
+    t = time.perf_counter()
     launches, index, terms = main_path(torch, S, K, obs, args.terms,
                                        args.seed)
     captured = capture_inputs(torch, S, K, index, terms, args.seed)
     rows = kernel_rows(torch, K, ref, F, launches, captured)
     where_time_goes(torch, S, obs, index, terms, args.seed)
+    del index, captured
+    log(f"search phases: {time.perf_counter() - t:.1f} s")
+
+    t = time.perf_counter()
+    cfg = get_config(SERVE_ARCH)
+    serve_launches, largest, eng, params = serve_path(
+        torch, T, SV, LS, SK, cfg, args.seed)
+    serve_profile(torch, SV, LS, obs, cfg, params, eng, args.seed)
+    del params
+    rows.append(paged_decode_rows(torch, SK, SR, cfg, eng, largest,
+                                  serve_launches, args.seed))
+    log(f"serve phases: {time.perf_counter() - t:.1f} s")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
 
     print(card_line(), flush=True)

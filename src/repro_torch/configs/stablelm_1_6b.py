@@ -1,0 +1,23 @@
+"""stablelm-1.6b [dense] — 32 heads with kv=32 (full MHA-style GQA).
+[hf:stabilityai/stablelm-2-1_6b; unverified]"""
+
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="stablelm-1.6b",
+    n_layers=24,
+    d_model=2048,
+    n_heads=32,
+    n_kv_heads=32,
+    d_ff=5632,
+    vocab=100_352,
+    layer_pattern="dense",
+    rope_theta=10_000.0,
+    tie_embeddings=True,
+)
+
+REDUCED = ModelConfig(
+    name="stablelm-1.6b-reduced",
+    n_layers=2, d_model=64, n_heads=4, n_kv_heads=4, d_ff=128, vocab=512,
+    layer_pattern="dense",
+)

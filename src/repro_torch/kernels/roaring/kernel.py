@@ -1,12 +1,7 @@
-"""Build, bind and launch the hand-written CUDA kernels of ``csrc/``.
+"""Bind and launch the hand-written CUDA kernels of ``csrc/``.
 
-The ``.cu`` sources compile with ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, loaded with ``ctypes``. Builds happen at
-first use, never at import: each source compiles to an object in its own
-``nvcc`` process, all started together, and one link makes the library in
-``_build/`` next to this file, under a name that hashes the sources, the
-generated dispatch table and the flags, so an edit never reuses a stale
-library.
+The sources build with the port's other kernels into one library
+(``repro_torch.kernels.build``), at first use, never at import.
 
 Wrappers take CUDA tensors only, check dtype / shape / contiguity, allocate
 the outputs, launch on PyTorch's current stream and raise if the launch
@@ -17,27 +12,17 @@ where it launches, and nowhere else.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 from typing import Dict, Optional
 
 import torch
 
+from .. import build as _build
 from . import dispatch as D
 from . import fused as F
 
-__all__ = ["build", "and_table_source", "launch_counts",
+__all__ = ["and_table_source", "launch_counts",
            "reset_launch_counts", "intersect_dispatch_cuda",
-           "fused_eval_cuda", "fused_max_smem_slots", "NVCC_FLAGS"]
-
-_CSRC = Path(__file__).resolve().parent / "csrc"
-_BUILD = Path(__file__).resolve().parent / "_build"
-_SOURCES = ("intersect_dispatch.cu", "fused_eval.cu")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC")
+           "fused_eval_cuda", "fused_max_smem_slots"]
 
 # row-kernel ids of the CUDA cell switch (RK_* in and_table.inc)
 _KERNEL_IDS = {"gallop": 1, "probe": 2, "word_and": 3, "run_gallop": 4,
@@ -76,51 +61,6 @@ def and_table_source() -> str:
     return "\n".join(lines)
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = Path("/usr/local/cuda/bin/nvcc")
-    if default.exists():
-        return str(default)
-    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
-                       "toolkit to build")
-
-
-def build() -> Path:
-    """Build the kernel library unless an up-to-date one exists; returns its
-    path. Raises with the compiler's output if a build step fails."""
-    header = and_table_source()
-    digest = hashlib.sha256(b"".join(
-        [(_CSRC / f).read_bytes() for f in (*_SOURCES, "roaring_common.cuh")]
-        + [header.encode(), " ".join(NVCC_FLAGS).encode()])).hexdigest()[:16]
-    lib = _BUILD / f"libroaring_{digest}.so"
-    if lib.exists():
-        return lib
-    work = _BUILD / f"{digest}.{os.getpid()}"
-    work.mkdir(parents=True, exist_ok=True)
-    (work / "and_table.inc").write_text(header)
-    objs = [work / f"{src[:-3]}.o" for src in _SOURCES]
-    steps = [(src, subprocess.Popen(
-        [_nvcc(), *NVCC_FLAGS, "-I", str(_CSRC), "-I", str(work), "-c",
-         "-o", str(obj), str(_CSRC / src)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
-        for src, obj in zip(_SOURCES, objs)]
-    outs = [(what, p.communicate()[0], p.returncode) for what, p in steps]
-    if not any(rc for _, _, rc in outs):
-        link = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(work / "lib.so"),
-             *map(str, objs)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-        outs.append(("link", link.stdout, link.returncode))
-    errors = [f"{what}: nvcc exit {rc}\n{out.decode(errors='replace')}"
-              for what, out, rc in outs if rc]
-    if errors:
-        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(errors))
-    os.replace(work / "lib.so", lib)
-    shutil.rmtree(work, ignore_errors=True)
-    return lib
-
-
 _LIB: Optional[ctypes.CDLL] = None
 _P = ctypes.c_void_p
 
@@ -128,7 +68,7 @@ _P = ctypes.c_void_p
 def _lib() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
+        lib = _build.library()
         lib.roaring_intersect_dispatch.argtypes = [
             _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, _P]
         lib.roaring_intersect_dispatch.restype = ctypes.c_int
@@ -138,17 +78,8 @@ def _lib() -> ctypes.CDLL:
         lib.roaring_fused_eval.restype = ctypes.c_int
         lib.roaring_fused_max_smem_slots.argtypes = []
         lib.roaring_fused_max_smem_slots.restype = ctypes.c_int
-        lib.roaring_error_string.argtypes = [ctypes.c_int]
-        lib.roaring_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
-
-
-def _raise_on(err: int, what: str) -> None:
-    if err != 0:
-        msg = _lib().roaring_error_string(err)
-        raise RuntimeError(f"{what} launch failed: CUDA error {err} "
-                           f"({msg.decode()})")
 
 
 def _check(t: torch.Tensor, dtype: torch.dtype, name: str) -> None:
@@ -197,7 +128,7 @@ def intersect_dispatch_cuda(a: torch.Tensor, b: torch.Tensor,
     err = _lib().roaring_intersect_dispatch(
         _ptr(a), _ptr(b), _ptr(meta), _ptr(hits), _ptr(card), R, Rb,
         _stream(a))
-    _raise_on(err, entry)
+    _build.raise_on(err, entry)
     launch_counts[entry] += 1
     return hits, card
 
@@ -238,6 +169,6 @@ def fused_eval_cuda(ops: torch.Tensor, meta: torch.Tensor,
     err = _lib().roaring_fused_eval(
         _ptr(ops), _ptr(meta), _ptr(tape), tape.shape[0], N, C, plan.n_slots,
         _ptr(bits), _ptr(card), _ptr(scratch), _stream(ops))
-    _raise_on(err, "fused_tree")
+    _build.raise_on(err, "fused_tree")
     launch_counts["fused_tree"] += 1
     return bits, card

@@ -1,0 +1,111 @@
+"""Bind and launch the hand-written paged-decode CUDA kernel of ``csrc/``.
+
+``paged_decode.cu`` builds with the port's other kernels into one library
+(``repro_torch.kernels.build``), at first use, never at import. The wrapper
+takes CUDA tensors only, checks dtype / shape / contiguity, allocates the
+output, launches on PyTorch's current stream and raises if the launch
+returned an error. It adds one to ``launch_counts["paged_decode"]`` where
+it launches, and nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional
+
+import torch
+
+from .. import build as _build
+
+__all__ = ["launch_counts", "reset_launch_counts", "paged_decode_cuda",
+           "MAX_GROUP", "MAX_HEAD_DIM"]
+
+MAX_GROUP = 8           # query heads per KV head (kMaxG in the source)
+MAX_HEAD_DIM = 256      # kMaxD in the source
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+launch_counts: Dict[str, int] = {"paged_decode": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+_LIB: Optional[ctypes.CDLL] = None
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def _lib() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        lib = _build.library()
+        lib.sparse_attn_paged_decode.argtypes = (
+            [_P] * 8 + [_I] * 7 + [ctypes.c_float, ctypes.c_float, _I, _P])
+        lib.sparse_attn_paged_decode.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def _check(t: torch.Tensor, dtype, name: str, device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} must be on {device} (got {t.device})")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype} (got {t.dtype})")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def paged_decode_cuda(q: torch.Tensor, k_pages: torch.Tensor,
+                      v_pages: torch.Tensor, page_idx: torch.Tensor,
+                      counts: torch.Tensor, lengths: torch.Tensor,
+                      starts: torch.Tensor, *, softcap: Optional[float] = None,
+                      scale: Optional[float] = None) -> torch.Tensor:
+    """Launch the paged decode kernel.
+
+    q: [B, KVH, G, D] float32 or bfloat16; k_pages / v_pages: [P,
+    page_size, KVH, D] of q's dtype; page_idx: int32[B, max_pages] with ids
+    in [0, P) in the first ``counts[b]`` entries; counts / lengths / starts:
+    int32[B]. Returns out [B, KVH, G, D] in q's dtype. G <= 8, D <= 256 and
+    D * itemsize a multiple of 16 bytes.
+    """
+    if not q.is_cuda:
+        raise ValueError(f"q must be a CUDA tensor (got {q.device})")
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"q must be float32 or bfloat16 (got {q.dtype})")
+    dev = q.device
+    for t, name in ((q, "q"), (k_pages, "k_pages"), (v_pages, "v_pages")):
+        _check(t, q.dtype, name, dev)
+    for t, name in ((page_idx, "page_idx"), (counts, "counts"),
+                    (lengths, "lengths"), (starts, "starts")):
+        _check(t, torch.int32, name, dev)
+    B, KVH, G, D = q.shape
+    P, page_size = k_pages.shape[0], k_pages.shape[1]
+    if (k_pages.shape != (P, page_size, KVH, D)
+            or v_pages.shape != k_pages.shape or page_idx.dim() != 2
+            or page_idx.shape[0] != B or page_idx.shape[1] < 1
+            or any(t.shape != (B,) for t in (counts, lengths, starts))):
+        raise ValueError(
+            f"bad shapes: q {tuple(q.shape)}, pools {tuple(k_pages.shape)} / "
+            f"{tuple(v_pages.shape)}, page_idx {tuple(page_idx.shape)}, "
+            f"counts / lengths / starts {tuple(counts.shape)} / "
+            f"{tuple(lengths.shape)} / {tuple(starts.shape)}")
+    if not (1 <= G <= MAX_GROUP and 1 <= D <= MAX_HEAD_DIM
+            and (D * q.element_size()) % 16 == 0):
+        raise ValueError(f"unsupported G = {G}, D = {D} for {q.dtype}")
+    if softcap is not None and softcap <= 0:
+        raise ValueError("softcap must be positive")
+    out = torch.empty_like(q)
+    err = _lib().sparse_attn_paged_decode(
+        *(_P(t.data_ptr()) for t in (q, k_pages, v_pages, page_idx, counts,
+                                     lengths, starts, out)),
+        B, KVH, G, D, P, page_size, page_idx.shape[1],
+        D ** -0.5 if scale is None else scale,
+        0.0 if softcap is None else softcap, _DTYPES[q.dtype],
+        _P(torch.cuda.current_stream(dev).cuda_stream))
+    _build.raise_on(err, "paged_decode")
+    launch_counts["paged_decode"] += 1
+    return out

@@ -1,0 +1,86 @@
+"""The paged-decode CUDA kernel and the serving engine, on the card.
+
+The module skips as a whole without a CUDA card, so that a machine without
+one collects none of its tests. Run them on the card with
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu_serve.py
+
+This file imports no JAX: the machine with the card has none.
+Tolerances: a bfloat16 output differs from its plain version by at most
+one rounding of the output (one ulp is 2**-7 below magnitude 2, and the
+case outputs are weighted means of standard normals), so ``BF16_ATOL`` is
+1e-2; in float32 the sums differ only in order (``F32_ATOL``).
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+if not torch.cuda.is_available():
+    pytest.skip("needs an NVIDIA card (run on the chip)",
+                allow_module_level=True)
+
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels.sparse_attn import cases  # noqa: E402
+from repro_torch.kernels.sparse_attn import kernel as SK  # noqa: E402
+from repro_torch.kernels.sparse_attn import ref as SR  # noqa: E402
+from repro_torch.launch.serve import make_requests, serve  # noqa: E402
+from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.serve import ServeEngine  # noqa: E402
+
+pytestmark = pytest.mark.gpu
+
+SEED = 1402
+BF16_ATOL = 1e-2
+F32_ATOL = 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("G,D,page,softcap", cases.CHECK_GRID)
+def test_paged_decode_kernel_matches_plain_version(G, D, page, softcap,
+                                                   dtype):
+    c = cases.paged_decode_case(np.random.default_rng(SEED), G, D, page)
+    t = {k: torch.from_numpy(v).cuda() for k, v in c.items()}
+    q, kp, vp = (t[k].to(dtype) for k in ("q", "k_pages", "v_pages"))
+    args = tuple(t[k] for k in ("page_idx", "counts", "lengths", "starts"))
+    got = SK.paged_decode_cuda(q, kp, vp, *args, softcap=softcap)
+    torch.cuda.synchronize()
+    want = SR.paged_decode_ref(q, kp, vp, *args, softcap=softcap)
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    assert not got[t["counts"] == 0].any()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= (BF16_ATOL if dtype == torch.bfloat16 else F32_ATOL), err
+
+
+@pytest.mark.parametrize("arch", ["gemma2-2b", "stablelm-1.6b"])
+def test_engine_on_card_matches_cpu(arch):
+    """Reduced config, float32 compute: the engine on the card serves the
+    tokens the engine on the CPU serves, with ``paged_decode`` launched
+    once per layer per step."""
+    cfg = dataclasses.replace(get_config(arch, reduced=True),
+                              compute_dtype="float32")
+    params = T.init_lm(cfg, SEED, device="cpu")
+    got = {}
+    for dev in ("cpu", "cuda"):
+        p = params if dev == "cpu" else _to(params, dev)
+        eng = ServeEngine(cfg, p, max_batch=3, n_pages=64, page_size=4,
+                          max_pages_per_seq=24, device=dev)
+        reqs = make_requests(cfg, 5, 8, SEED)
+        SK.reset_launch_counts()
+        serve(eng, reqs)
+        got[dev] = [r.generated for r in reqs]
+        if dev == "cuda":
+            assert SK.launch_counts["paged_decode"] == (
+                cfg.n_layers * eng.steps_run)
+        assert eng.table.utilization() == 0.0
+    assert got["cuda"] == got["cpu"]
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)

@@ -330,6 +330,9 @@ def _check_imports_with_jax_and_repro_blocked():
         "sys.meta_path.insert(0, Block())\n"
         "import repro_torch.search, repro_torch.index, repro_torch.obs\n"
         "import repro_torch.kernels.roaring.kernel\n"
+        "import repro_torch.serve, repro_torch.launch.serve\n"
+        "import repro_torch.models.convert, repro_torch.configs\n"
+        "import repro_torch.kernels.sparse_attn.kernel\n"
         "assert not any(m.split('.')[0] in ('jax', 'repro') "
         "for m in sys.modules)\n"
         "print('ok')\n")
