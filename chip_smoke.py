@@ -15,7 +15,14 @@ paths of the port end to end:
 * LM serving on the Roaring-paged KV cache at gemma2-2b's full width and
   depth (random weights from a seeded generator): 8 short requests and one
   whose prompt runs past the 4,096-token sliding window, each checked
-  against greedy decoding over the port's own teacher-forced ``forward``.
+  against greedy decoding over the port's own teacher-forced ``forward``;
+* gemma2-2b training at full width and depth with Roaring block-sparse
+  attention on its 13 global layers: AdamW steps at train_4k's sequence of
+  4,096 tokens (batch cut to 1) from the bitmap-indexed data pipeline, with
+  step 0 checked against the same step through the kernel's plain version
+  and the loss falling; then the training launcher at the reduced config
+  under ``ResilientTrainer`` with a simulated failure, ending on the
+  parameters of an uninterrupted run.
 
 It then times each kernel on the inputs its path gave it, and profiles warm
 windows to show where the time goes (host spans, device busy share, top
@@ -29,9 +36,12 @@ phase fails. Imports nothing of JAX and nothing of the reference package.
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import gc
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -70,6 +80,29 @@ GAP_TOL = 1e-2
 BF16_ATOL = 1e-2
 F32_ATOL = 1e-5
 
+# the training phase: gemma2-2b at full width and depth, Roaring block-sparse
+# attention on the global layers; train_4k's sequence, batch cut 256 -> 1
+TRAIN_ARCH = "gemma2-2b"
+TRAIN_SEQ = 4096
+TRAIN_BATCH = 1
+TRAIN_STEPS = 8
+TRAIN_QUERY = "quality>=1&!dedup_dup"
+TRAIN_MASK = dict(pattern="local_global", window_blocks=8, n_global=4)
+TRAIN_LIVE_BLOCKS = 318
+# step 0 through the kernel against step 0 through its plain version, bf16
+# compute: the two round the global layers' outputs to bf16 from f32 sums
+# taken in another order (one ulp is 2**-8 relative), at different places
+# in 13 layers; the loss, a mean over 4,096 positions, moves far less than
+# LOSS_RTOL, and the grad norm, a root of a sum over 2.6 B squares, less
+# than GNORM_RTOL
+LOSS_RTOL = 2e-3
+GNORM_RTOL = 2e-2
+# the launcher phase: reduced gemma2-2b, one simulated failure
+LAUNCH_ARGS = ["--arch", "gemma2-2b", "--reduced", "--steps", "6",
+               "--batch", "2", "--seq", "256", "--ckpt-every", "2",
+               "--log-every", "100"]
+LAUNCH_FAIL_AT = {3}
+
 # where each ported kernel replaces a TPU kernel
 KERNELS = {
     "intersect_dispatch": (
@@ -84,6 +117,9 @@ KERNELS = {
     "paged_decode": (
         "src/repro_torch/kernels/sparse_attn/csrc/paged_decode.cu",
         "src/repro/kernels/sparse_attn/kernel.py:179"),
+    "sparse_flash_attention": (
+        "src/repro_torch/kernels/sparse_attn/csrc/sparse_flash.cu",
+        "src/repro/kernels/sparse_attn/kernel.py:79"),
 }
 
 
@@ -804,13 +840,29 @@ def check_greedy(torch, T, cfg, params, reqs, steps, tops):
         f"forward {time.perf_counter() - t:.1f} s")
 
 
+def device_summary(prof, wall_ms, top_n=6) -> str:
+    """Device busy time (kernels and copies; one stream) of a profiled
+    window against its wall time, and the work that takes the most."""
+    from torch.autograd import DeviceType
+    dev = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            dev[e.key] = dev.get(e.key, 0.0) + e.self_device_time_total / 1e3
+    busy = sum(dev.values())
+    top = sorted(dev.items(), key=lambda kv: -kv[1])[:top_n]
+    return (f"device busy {busy:.2f} ms = {100 * busy / wall_ms:.1f} % of "
+            f"wall (idle {100 - 100 * busy / wall_ms:.1f} %); top device "
+            "work: " + "; ".join(f"{k[:60]} {v:.2f} ms" for k, v in top)
+            if busy > 0 else "device time not measured (the profiler saw "
+            "no device activity)")
+
+
 def serve_profile(torch, SV, LS, obs, cfg, params, eng, seed):
     """One warm window of 4 short requests under ``torch.profiler`` with
     the engine's spans on: the ``serve.step`` host time, device busy time
     (kernels and copies; one stream) against the window's wall time, and
     the work that takes the device time. The profiler and the spans add
     host time, so the idle share is an upper bound."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     LS.serve(eng, LS.make_requests(cfg, 2, 8, seed + 1))       # warm
     obs.reset_traces()
@@ -822,26 +874,18 @@ def serve_profile(torch, SV, LS, obs, cfg, params, eng, seed):
     n = eng.steps_run - steps
     span_ms = sum(sp.duration_s for sp in obs.span_trees()
                   if sp.name == "serve.step") * 1e3
-    dev = {}
-    for e in p.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            dev[e.key] = dev.get(e.key, 0.0) + e.self_device_time_total / 1e3
-    busy = sum(dev.values())
     wall_ms = wall * 1e3
-    top = sorted(dev.items(), key=lambda kv: -kv[1])[:6]
-    device = (f"device busy {busy:.2f} ms = {100 * busy / wall_ms:.1f} % of "
-              f"wall (idle {100 - 100 * busy / wall_ms:.1f} %); top device "
-              "work: " + "; ".join(f"{k[:60]} {v:.2f} ms" for k, v in top)
-              if busy > 0 else "device time not measured (the profiler saw "
-              "no device activity)")
+    device = device_summary(p, wall_ms)
     log(f"profile serve: 4 requests in {n} steps, wall {wall_ms:.1f} ms "
         f"({wall_ms / n:.2f} ms per step); serve.step spans {span_ms:.1f} "
         f"ms; {device} ({card_line()})")
 
 
 def _leaves(tree):
+    """Leaves of nested dicts / lists; dicts by sorted key, so two trees of
+    one structure line up whatever order their keys were inserted in."""
     if isinstance(tree, dict):
-        return [x for v in tree.values() for x in _leaves(v)]
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
     if isinstance(tree, list):
         return [x for v in tree for x in _leaves(v)]
     return [tree]
@@ -979,6 +1023,308 @@ def paged_decode_rows(torch, SK, SR, cfg, eng, largest, launches, seed):
     return row
 
 
+# =============================================================================
+# training: gemma2-2b with Roaring block-sparse attention
+# =============================================================================
+
+def check_sparse_flash(torch, cases, SK, SR, seed):
+    """The block-sparse flash kernel against its plain version over
+    ``cases.FLASH_GRID`` (G 1 / 2, D 64 / 128 / 256, softcap on and off,
+    causal and not), in bf16 and f32, at the model's block of 128: a row
+    that lists only a block in its future (zeros when causal), a row with
+    ``counts = 0``, padding ids after ``counts``, and NaN in the one block
+    no row lists."""
+    rng = np.random.default_rng(seed)
+    worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    for G, D, softcap, causal in cases.FLASH_GRID:
+        c = cases.sparse_flash_case(rng, G, D)
+        t = {k: torch.from_numpy(v).cuda() for k, v in c.items()}
+        for dtype in worst:
+            q, k, v = (t[n].to(dtype) for n in "qkv")
+            opts = dict(causal=causal, softcap=softcap)
+            got = SK.sparse_flash_attention_cuda(q, k, v, t["kv_idx"],
+                                                 t["counts"], **opts)
+            want = SR.sparse_attention_ref(q, k, v, t["kv_idx"],
+                                           t["counts"], **opts)
+            torch.cuda.synchronize()
+            empty = got[:, :, cases.FLASH_BLOCK:2 * cases.FLASH_BLOCK]
+            future = got[:, :, :cases.FLASH_BLOCK]
+            if (got.dtype != dtype or not bool(torch.isfinite(got).all())
+                    or bool(empty.any()) or (causal and bool(future.any()))):
+                raise AssertionError(
+                    f"sparse_flash_attention G={G} D={D} softcap={softcap} "
+                    f"causal={causal} {dtype}: non-finite output or a "
+                    "non-zero row without live scores")
+            err = (got.float() - want.float()).abs().max().item()
+            worst[dtype] = max(worst[dtype], err)
+    log(f"check sparse_flash_attention: {len(cases.FLASH_GRID)} cases x "
+        f"(bf16, f32); max abs err {worst[torch.bfloat16]:.3g} (bf16, "
+        f"tolerance {BF16_ATOL}), {worst[torch.float32]:.3g} (f32, "
+        f"tolerance {F32_ATOL}); rows without live scores zero, the NaN "
+        "block never read")
+    if worst[torch.bfloat16] > BF16_ATOL or worst[torch.float32] > F32_ATOL:
+        raise AssertionError("sparse_flash_attention disagrees with its "
+                             "plain version")
+
+
+def _plain_sparse_attention(SR):
+    """``attention``'s sparse entry, but through the plain version on the
+    card (the kernel's comparison run)."""
+    def plain(q, k, v, kv_idx, counts, block_q, block_kv, causal, softcap,
+              scale):
+        return SR.sparse_attention_ref(q, k, v, kv_idx, counts,
+                                       block_q=block_q, block_kv=block_kv,
+                                       causal=causal, softcap=softcap,
+                                       scale=scale)
+    return plain
+
+
+def train_path(torch, T, SK, SR, TR, cfg, seed, device="cuda"):
+    """gemma2-2b at full width and depth, random weights, Roaring
+    block-sparse global layers: ``TRAIN_STEPS`` AdamW steps (remat full) on
+    one batch from the data pipeline. Checks 2 kernel launches per global
+    layer per step, step 0 against the same step through the plain version,
+    finite metrics and a falling loss; then profiles two more steps.
+    Returns (launches, params, block lists, batch)."""
+    from repro_torch.launch import train as LT
+    from repro_torch.models import attention as A
+    from repro_torch.optim import OptimizerDef, adamw, cosine_schedule
+    from repro_torch.sparsity import build_arch_mask, compile_mask
+
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    t0 = time.perf_counter()
+    params = T.init_lm(cfg, seed, device=device)
+    sync()
+    n_params = sum(t.numel() for t in _leaves(params))
+    pipe = LT.build_data(cfg, TRAIN_BATCH, TRAIN_SEQ, TRAIN_QUERY, seed)
+    toks, mask, _ = pipe.next_batch()
+    batch = {"tokens": torch.from_numpy(toks).to(device),
+             "mask": torch.from_numpy(mask).to(device)}
+    n_blocks = TRAIN_SEQ // cfg.sparse_block
+    lists = compile_mask(build_arch_mask(n_blocks, **TRAIN_MASK))
+    live = int(lists[1].sum())
+    log(f"train model: {cfg.name}, {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads of {cfg.hd}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, attn_impl {cfg.attn_impl}; "
+        f"{n_params / 1e9:.3f} B parameters ({cfg.param_dtype}, compute "
+        f"{cfg.compute_dtype}); batch {TRAIN_BATCH} (CUT from train_4k's "
+        f"256) x {TRAIN_SEQ} tokens from query {TRAIN_QUERY!r} "
+        f"({pipe.selection.size} docs, {int(mask.sum())} loss positions); "
+        f"block lists {TRAIN_MASK}: {live} of {n_blocks ** 2} blocks live, "
+        f"max_active {lists[0].shape[1]}; init {time.perf_counter() - t0:.1f}"
+        " s")
+    if live != TRAIN_LIVE_BLOCKS:
+        raise AssertionError(f"{live} live blocks, expected "
+                             f"{TRAIN_LIVE_BLOCKS}")
+
+    # step 0 with the global layers through the plain version on the card;
+    # no optimizer state (step 0's learning rate is 0 under the warm-up)
+    probe = TR.make_train_step(cfg, OptimizerDef(lambda p: None,
+                                                 lambda g, s, p, t: s),
+                               remat="full", block_lists=lists)
+    orig = A.sparse_attention
+    A.sparse_attention = _plain_sparse_attention(SR)
+    try:
+        t = time.perf_counter()
+        _, m = probe(TR.TrainState(params, None, 0), batch)
+        plain = (float(m["loss"]), float(m["grad_norm"]))
+        t_plain = time.perf_counter() - t
+    finally:
+        A.sparse_attention = orig
+    gc.collect()
+
+    opt = adamw(cosine_schedule(3e-4, warmup=20, total=TRAIN_STEPS))
+    state = TR.TrainState(params, opt.init(params), 0)
+    step = TR.make_train_step(cfg, opt, remat="full", block_lists=lists)
+    sync()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    SK.reset_launch_counts()
+    metrics, times, per_step = [], [], []
+    for i in range(TRAIN_STEPS):
+        before = SK.launch_counts["sparse_flash_attention"]
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        sync()
+        times.append(time.perf_counter() - t)
+        per_step.append(SK.launch_counts["sparse_flash_attention"] - before)
+    launches = dict(SK.launch_counts)
+    peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else float("nan")
+    card = card_line() if cuda else device
+    ms = 1e3 * float(np.mean(times[1:]))
+    log("train steps (loss, grad norm): " + "; ".join(
+        f"{a:.5f}, {b:.4f}" for a, b in metrics))
+    log(f"train: {TRAIN_STEPS} steps, step 0 {1e3 * times[0]:.1f} ms, steps "
+        f"1-{TRAIN_STEPS - 1} {ms:.1f} ms per step = "
+        f"{TRAIN_BATCH * TRAIN_SEQ / ms * 1e3:.1f} tokens/s; "
+        f"max_memory_allocated {peak:.2f} GB; the plain version's step 0 "
+        f"(no optimizer) {1e3 * t_plain:.1f} ms ({card})")
+    loss0, gn0 = metrics[0]
+    log(f"step 0 through the kernel vs the plain version on the card: loss "
+        f"{loss0:.6f} vs {plain[0]:.6f} (rel "
+        f"{abs(loss0 - plain[0]) / abs(plain[0]):.3g}, tolerance "
+        f"{LOSS_RTOL}), grad norm {gn0:.5f} vs {plain[1]:.5f} (rel "
+        f"{abs(gn0 - plain[1]) / abs(plain[1]):.3g}, tolerance {GNORM_RTOL})")
+    if not np.all(np.isfinite(metrics)):
+        raise AssertionError("a loss or grad norm is not finite")
+    if (abs(loss0 - plain[0]) > LOSS_RTOL * abs(plain[0])
+            or abs(gn0 - plain[1]) > GNORM_RTOL * abs(plain[1])):
+        raise AssertionError("step 0 through the kernel disagrees with the "
+                             "plain version")
+    if not metrics[-1][0] < metrics[0][0]:
+        raise AssertionError("the loss did not fall")
+    want = 2 * cfg.n_superblocks
+    log(f"launches on the train path: {launches}; per step {per_step} "
+        f"({cfg.n_superblocks} global layers x 2: the forward and its "
+        "recompute under remat)")
+    if per_step != [want] * TRAIN_STEPS:
+        raise AssertionError("sparse_flash_attention was not launched twice "
+                             "per global layer per step")
+    train_profile(torch, step, state, batch, device)
+    del state, step
+    gc.collect()
+    return launches, params, lists, batch
+
+
+def train_profile(torch, step, state, batch, device="cuda", n=2):
+    """Two more steps under ``torch.profiler``: their wall time, device busy
+    time against it and the top device work. The profiler adds host time,
+    so the idle share is an upper bound."""
+    from torch.profiler import ProfilerActivity, profile
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    sync()
+    with profile(activities=[ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if cuda else [])) as p:
+        t = time.perf_counter()
+        for _ in range(n):
+            state, _ = step(state, batch)
+        sync()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    log(f"profile train: {n} steps, wall {wall_ms:.1f} ms ("
+        f"{wall_ms / n:.1f} ms per step); {device_summary(p, wall_ms, 8)} "
+        f"({card_line() if cuda else device})")
+
+
+def sparse_flash_bound(q, k, kv_idx, counts, block, causal=True):
+    """(bound_ms, bound_by, live pairs) of one launch: q, k, v and out each
+    moved once, plus the block lists; QK and PV at 2 operations per
+    multiply-add over each live (query, key) pair, over the bf16
+    tensor-core peak."""
+    B, H, S, D = q.shape
+    KVH, S_kv = k.shape[1], k.shape[2]
+    item = q.element_size()
+    rows = np.arange(block)
+    pairs = 0
+    for qb in range(kv_idx.shape[0]):
+        r = qb * block + rows
+        for kb in kv_idx[qb, :counts[qb]]:
+            c0 = int(kb) * block
+            per_row = (np.clip(r - c0 + 1, 0, block) if causal
+                       else np.full(block, block))
+            pairs += int(per_row.sum())
+    nbytes = (2 * B * H * S * D + 2 * B * KVH * S_kv * D) * item \
+        + 4 * (kv_idx.size + counts.size)
+    ops = pairs * B * H * 4 * D
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / BF16_OPS_PER_S * 1e3
+    return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"),
+            pairs)
+
+
+def sparse_flash_row(torch, T, SK, SR, cfg, params, lists, batch, launches):
+    """The kernel on the inputs the full-width path gave its first global
+    layer (captured in an untimed forward), L2 overwritten before each
+    launch, beside its plain version and ``scaled_dot_product_attention``
+    with the block lists expanded to a boolean mask (no softcap: it cannot
+    apply one)."""
+    import torch.nn.functional as Fn
+    captured = []
+    orig = SK.sparse_flash_attention_cuda
+
+    def capture(*args, **kw):
+        if not captured:
+            captured.append((tuple(a.clone() for a in args), dict(kw)))
+        return orig(*args, **kw)
+
+    SK.sparse_flash_attention_cuda = capture
+    try:
+        with torch.no_grad():
+            T.forward(params, batch["tokens"][:, :-1], cfg,
+                      block_lists=tuple(torch.from_numpy(a).cuda()
+                                        for a in lists))
+    finally:
+        SK.sparse_flash_attention_cuda = orig
+    (q, k, v, kv_idx, counts), kw = captured[0]
+    got = SK.sparse_flash_attention_cuda(q, k, v, kv_idx, counts, **kw)
+    want = SR.sparse_attention_ref(q, k, v, kv_idx, counts, **kw)
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    # both round an f32 result to bf16: at most one bf16 ulp apart, and an
+    # ulp is at most 2**-7 of the larger magnitude (the trained model's
+    # outputs pass 2, where BF16_ATOL, one ulp below 2, no longer covers it)
+    ulp = 2.0 ** -7 * torch.maximum(got.float().abs(), want.float().abs())
+    if bool((diff > ulp + F32_ATOL).any()):
+        raise AssertionError(f"sparse_flash_attention disagrees with its "
+                             f"plain version by more than one bf16 rounding "
+                             f"(max abs err {err:.4g})")
+    log(f"sparse_flash_attention at the train path's input: max abs err "
+        f"{err:.4g}, within one bf16 rounding of the output everywhere "
+        f"(|out| up to {want.float().abs().max().item():.3g})")
+    del got, want, diff, ulp
+    flush = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device="cuda")
+    ms = time_cold_ms(torch, lambda: SK.sparse_flash_attention_cuda(
+        q, k, v, kv_idx, counts, **kw), 20, flush)
+    pms = time_cold_ms(torch, lambda: SR.sparse_attention_ref(
+        q, k, v, kv_idx, counts, **kw), 5, flush)
+    B, H, S, D = q.shape
+    dense = SR.block_mask_to_dense(kv_idx, counts, S // kw["block_kv"])
+    mask = dense.repeat_interleave(kw["block_q"], 0).repeat_interleave(
+        kw["block_kv"], 1) & torch.ones(S, S, dtype=torch.bool,
+                                        device="cuda").tril()
+    lib = time_cold_ms(torch, lambda: Fn.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, enable_gqa=True), 20, flush)
+    bound, pairs = sparse_flash_bound(q, k, kv_idx.cpu().numpy(),
+                                      counts.cpu().numpy(), kw["block_q"],
+                                      kw["causal"])
+    return _row("sparse_flash_attention", launches, err, ms, pms, bound,
+                f"the train path's global layer: B = {B}, H = {H}, KVH = "
+                f"{k.shape[1]}, S = {S}, D = {D}, {q.dtype}, softcap "
+                f"{kw['softcap']}, {int(counts.sum())} listed blocks, "
+                f"{pairs} live pairs; cold L2",
+                (lib, "scaled_dot_product_attention (block lists expanded "
+                 "to a boolean mask, no softcap)"))
+
+
+def launcher_path(torch, LT, simulate_failure):
+    """``launch/train.py``'s ``main`` on the card at the reduced config,
+    under ``ResilientTrainer`` with one simulated failure: one restart
+    exactly, and the final parameters equal an uninterrupted run's."""
+    t = time.perf_counter()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            whole = LT.main(LAUNCH_ARGS + ["--ckpt", f"{d}/whole"])
+            failed = LT.main(LAUNCH_ARGS + ["--ckpt", f"{d}/failed"],
+                             failure_source=simulate_failure(LAUNCH_FAIL_AT))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    pw, pf = (_leaves(r["state"]["params"]) for r in (whole, failed))
+    same = all(torch.equal(a, b) for a, b in zip(pw, pf))
+    log(f"launcher: reduced {LAUNCH_ARGS[1]}, 6 steps, checkpoints every 2; "
+        f"a failure injected at step(s) {sorted(LAUNCH_FAIL_AT)}: restarts "
+        f"{failed['restarts']} (uninterrupted run {whole['restarts']}), "
+        f"losses {whole['losses'][0]:.4f} -> {whole['losses'][-1]:.4f}; "
+        f"final parameters {'equal' if same else 'DIFFER'}; "
+        f"{time.perf_counter() - t:.1f} s")
+    if whole["restarts"] != 0 or failed["restarts"] != len(LAUNCH_FAIL_AT):
+        raise AssertionError("restarts differ from the injected failures")
+    if not same:
+        raise AssertionError("the restored run ended on other parameters")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--terms", type=int, default=N_TERMS,
@@ -1006,7 +1352,10 @@ def main(argv=None) -> int:
     from repro_torch.kernels.sparse_attn import kernel as SK
     from repro_torch.kernels.sparse_attn import ref as SR
     from repro_torch.launch import serve as LS
+    from repro_torch.launch import train as LT
     from repro_torch.models import transformer as T
+    from repro_torch.runtime import simulate_failure
+    from repro_torch import train as TR
 
     # float32 matmuls and convolutions in full float32 (no TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1025,6 +1374,7 @@ def main(argv=None) -> int:
 
     check_kernels(torch, cases, K, ops, ref, F, args.seed)
     check_paged_decode(torch, pd_cases, SK, SR, args.seed)
+    check_sparse_flash(torch, pd_cases, SK, SR, args.seed)
     t = time.perf_counter()
     launches, index, terms = main_path(torch, S, K, obs, args.terms,
                                        args.seed)
@@ -1042,7 +1392,22 @@ def main(argv=None) -> int:
     del params
     rows.append(paged_decode_rows(torch, SK, SR, cfg, eng, largest,
                                   serve_launches, args.seed))
+    del eng, largest
+    gc.collect()
+    torch.cuda.empty_cache()
     log(f"serve phases: {time.perf_counter() - t:.1f} s")
+
+    t = time.perf_counter()
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), attn_impl="sparse")
+    train_launches, params, lists, batch = train_path(
+        torch, T, SK, SR, TR, cfg, args.seed)
+    rows.append(sparse_flash_row(torch, T, SK, SR, cfg, params, lists,
+                                 batch, train_launches))
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    launcher_path(torch, LT, simulate_failure)
+    log(f"train phases: {time.perf_counter() - t:.1f} s")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
 
     print(card_line(), flush=True)

@@ -1,0 +1,56 @@
+"""Nested dicts / lists of tensors, flattened in the reference's order.
+
+The reference's parameter and train-state pytrees are dicts and lists; JAX
+flattens a dict by its sorted keys and a list in order. These helpers do
+the same for the port's nested dicts of tensors, so a leaf's index means
+the same leaf in both packages (the checkpoint layout relies on it).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, List
+
+
+def leaves(tree: Any) -> List[Any]:
+    """The leaves of ``tree`` in the reference's flattening order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in leaves(v)]
+    return [tree]
+
+
+def unflatten(like: Any, flat: List[Any]) -> Any:
+    """A tree shaped like ``like`` whose leaves are ``flat``, in order."""
+    it = iter(flat)
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(node[k]) for k in sorted(node)}
+        if isinstance(node, (list, tuple)):
+            return type(node)(build(v) for v in node)
+        return next(it)
+
+    out = build(like)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree holds")
+    return out
+
+
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """``fn`` over corresponding leaves of ``tree`` and ``rest``."""
+    cols = [leaves(t) for t in (tree, *rest)]
+    if any(len(c) != len(cols[0]) for c in cols):
+        raise ValueError("trees differ in their number of leaves")
+    return unflatten(tree, [fn(*xs) for xs in zip(*cols)])
+
+
+def describe(tree: Any) -> str:
+    """The structure of ``tree`` as text (dict keys, list lengths, ``*``
+    for a leaf), for a checkpoint's manifest."""
+    if isinstance(tree, dict):
+        return "{" + ", ".join(f"{k!r}: {describe(tree[k])}"
+                               for k in sorted(tree)) + "}"
+    if isinstance(tree, (list, tuple)):
+        return "[" + ", ".join(describe(v) for v in tree) + "]"
+    return "*"

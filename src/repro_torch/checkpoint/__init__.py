@@ -1,0 +1,7 @@
+"""``repro_torch.checkpoint`` — atomic, chunked, async checkpoints."""
+
+from .ckpt import (save_checkpoint, restore_checkpoint, latest_step,
+                   AsyncCheckpointer)
+
+__all__ = ["save_checkpoint", "restore_checkpoint", "latest_step",
+           "AsyncCheckpointer"]

@@ -26,7 +26,8 @@ __all__ = ["build", "library", "raise_on", "NVCC_FLAGS", "SOURCES"]
 _ROOT = Path(__file__).resolve().parent
 _BUILD = _ROOT / "_build"
 SOURCES = ("roaring/csrc/intersect_dispatch.cu", "roaring/csrc/fused_eval.cu",
-           "sparse_attn/csrc/paged_decode.cu")
+           "sparse_attn/csrc/paged_decode.cu",
+           "sparse_attn/csrc/sparse_flash.cu")
 _HEADERS = ("roaring/csrc/roaring_common.cuh",)
 _INCLUDES = ("roaring/csrc", "sparse_attn/csrc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -1,8 +1,7 @@
 """Attention kernels over Roaring-derived block and page lists: the
-hand-written paged-decode CUDA kernel, its plain version, and the entry
-point that picks between them by device. The block-sparse training kernel
-comes with the training slice (ROADMAP queue 2)."""
+hand-written block-sparse flash and paged-decode CUDA kernels, their plain
+versions, and the entry points that pick between them by device."""
 
-from .ops import paged_decode
+from .ops import paged_decode, sparse_attention
 
-__all__ = ["paged_decode"]
+__all__ = ["paged_decode", "sparse_attention"]

@@ -1,11 +1,11 @@
-"""Bind and launch the hand-written paged-decode CUDA kernel of ``csrc/``.
+"""Bind and launch the hand-written attention CUDA kernels of ``csrc/``.
 
-``paged_decode.cu`` builds with the port's other kernels into one library
-(``repro_torch.kernels.build``), at first use, never at import. The wrapper
-takes CUDA tensors only, checks dtype / shape / contiguity, allocates the
-output, launches on PyTorch's current stream and raises if the launch
-returned an error. It adds one to ``launch_counts["paged_decode"]`` where
-it launches, and nowhere else.
+``paged_decode.cu`` and ``sparse_flash.cu`` build with the port's other
+kernels into one library (``repro_torch.kernels.build``), at first use,
+never at import. Each wrapper takes CUDA tensors only, checks dtype /
+shape / contiguity, allocates the output, launches on PyTorch's current
+stream and raises if the launch returned an error. It adds one to its own
+``launch_counts`` entry where it launches, and nowhere else.
 """
 
 from __future__ import annotations
@@ -18,13 +18,20 @@ import torch
 from .. import build as _build
 
 __all__ = ["launch_counts", "reset_launch_counts", "paged_decode_cuda",
-           "MAX_GROUP", "MAX_HEAD_DIM"]
+           "sparse_flash_attention_cuda", "MAX_GROUP", "MAX_HEAD_DIM",
+           "FLASH_HEAD_DIMS", "FLASH_Q_TILE", "FLASH_KV_TILE"]
 
 MAX_GROUP = 8           # query heads per KV head (kMaxG in the source)
 MAX_HEAD_DIM = 256      # kMaxD in the source
+# sparse_flash.cu: the head dims it is built for, the query rows of one
+# block (block_q is a multiple) and the keys of one sub-tile (block_kv is)
+FLASH_HEAD_DIMS = (16, 32, 64, 128, 256)
+FLASH_Q_TILE = 64
+FLASH_KV_TILE = 32
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-launch_counts: Dict[str, int] = {"paged_decode": 0}
+launch_counts: Dict[str, int] = {"paged_decode": 0,
+                                 "sparse_flash_attention": 0}
 
 
 def reset_launch_counts() -> None:
@@ -44,6 +51,9 @@ def _lib() -> ctypes.CDLL:
         lib.sparse_attn_paged_decode.argtypes = (
             [_P] * 8 + [_I] * 7 + [ctypes.c_float, ctypes.c_float, _I, _P])
         lib.sparse_attn_paged_decode.restype = ctypes.c_int
+        lib.sparse_attn_sparse_flash.argtypes = (
+            [_P] * 6 + [_I] * 10 + [ctypes.c_float, ctypes.c_float, _I, _P])
+        lib.sparse_attn_sparse_flash.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
@@ -108,4 +118,59 @@ def paged_decode_cuda(q: torch.Tensor, k_pages: torch.Tensor,
         _P(torch.cuda.current_stream(dev).cuda_stream))
     _build.raise_on(err, "paged_decode")
     launch_counts["paged_decode"] += 1
+    return out
+
+
+def sparse_flash_attention_cuda(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, kv_idx: torch.Tensor,
+                                counts: torch.Tensor, *, block_q: int = 128,
+                                block_kv: int = 128, causal: bool = True,
+                                softcap: Optional[float] = None,
+                                scale: Optional[float] = None) -> torch.Tensor:
+    """Launch the block-sparse flash attention forward.
+
+    q: [B, H, S, D] float32 or bfloat16; k / v: [B, KVH, S_kv, D] of q's
+    dtype, H a multiple of KVH; kv_idx: int32[S / block_q, max_active],
+    the listed KV block ids of each q-block row in its first ``counts[qb]``
+    entries; counts: int32[S / block_q]. Returns out [B, H, S, D] in q's
+    dtype. D in ``FLASH_HEAD_DIMS``; block_q a multiple of
+    ``FLASH_Q_TILE``, block_kv of ``FLASH_KV_TILE``.
+    """
+    if not q.is_cuda:
+        raise ValueError(f"q must be a CUDA tensor (got {q.device})")
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"q must be float32 or bfloat16 (got {q.dtype})")
+    dev = q.device
+    for t, name in ((q, "q"), (k, "k"), (v, "v")):
+        _check(t, q.dtype, name, dev)
+    for t, name in ((kv_idx, "kv_idx"), (counts, "counts")):
+        _check(t, torch.int32, name, dev)
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"bad ranks: q {tuple(q.shape)}, k {tuple(k.shape)}")
+    B, H, S, D = q.shape
+    KVH, S_kv = k.shape[1], k.shape[2]
+    if (k.shape != (B, KVH, S_kv, D) or v.shape != k.shape or KVH < 1
+            or H % KVH or kv_idx.dim() != 2 or kv_idx.shape[1] < 1
+            or block_q % FLASH_Q_TILE or block_kv % FLASH_KV_TILE
+            or block_q < 1 or block_kv < 1 or S % block_q or S_kv % block_kv
+            or kv_idx.shape[0] != S // block_q
+            or counts.shape != (S // block_q,)):
+        raise ValueError(
+            f"bad shapes: q {tuple(q.shape)}, k / v {tuple(k.shape)} / "
+            f"{tuple(v.shape)}, kv_idx {tuple(kv_idx.shape)}, counts "
+            f"{tuple(counts.shape)}, block_q {block_q}, block_kv {block_kv}")
+    if D not in FLASH_HEAD_DIMS:
+        raise ValueError(f"unsupported head dim {D} (built for "
+                         f"{FLASH_HEAD_DIMS})")
+    if softcap is not None and softcap <= 0:
+        raise ValueError("softcap must be positive")
+    out = torch.empty_like(q)
+    err = _lib().sparse_attn_sparse_flash(
+        *(_P(t.data_ptr()) for t in (q, k, v, kv_idx, counts, out)),
+        B, H, KVH, S, S_kv, D, kv_idx.shape[1], block_q, block_kv,
+        int(bool(causal)), D ** -0.5 if scale is None else scale,
+        0.0 if softcap is None else softcap, _DTYPES[q.dtype],
+        _P(torch.cuda.current_stream(dev).cuda_stream))
+    _build.raise_on(err, "sparse_flash_attention")
+    launch_counts["sparse_flash_attention"] += 1
     return out

@@ -1,4 +1,5 @@
-"""Carry the reference package's LM parameters into the port.
+"""Carry the reference package's LM parameters and train state into the
+port.
 
 The reference keeps its parameters as a pytree of arrays: ``embed``,
 ``final_norm``, optionally ``unembed``, and ``blocks``, one dict per block
@@ -6,7 +7,9 @@ kind of the super-block whose leaves carry a leading ``n_superblocks``
 axis. Handed over as numpy arrays (``jax.tree.map(np.asarray, params)``),
 they become the port's parameters with the same structure, names and
 layouts (``wq`` ``[d, H, hd]``, ``wo`` ``[H, hd, d]``, ...), so both
-packages compute from the same numbers.
+packages compute from the same numbers. A reference ``TrainState``
+(``{"params", "opt": {"m", "v"}, "step"}``, AdamW's moments shaped like
+the parameters) comes over with ``state_from_numpy``.
 """
 
 from __future__ import annotations
@@ -47,3 +50,18 @@ def params_from_numpy(tree, cfg: ModelConfig, *, device=None) -> dict:
     out = {k: conv(v, False) for k, v in tree.items() if k != "blocks"}
     out["blocks"] = [conv(b, True) for b in tree["blocks"]]
     return out
+
+
+def state_from_numpy(tree, cfg: ModelConfig, *, device=None) -> dict:
+    """A reference AdamW ``TrainState`` (numpy leaves) -> the port's
+    ``train.TrainState`` on ``device`` (``None``: the card): parameters,
+    moments ``m`` / ``v`` (f32, shaped like the parameters) and the step."""
+    if set(tree) != {"params", "opt", "step"} or set(tree["opt"]) != {"m",
+                                                                      "v"}:
+        raise ValueError("expected an AdamW train state {params, opt: {m, "
+                         f"v}}, step}}, got keys {sorted(tree)}")
+    return {"params": params_from_numpy(tree["params"], cfg, device=device),
+            "opt": {k: params_from_numpy(tree["opt"][k], cfg, device=device)
+                    for k in ("m", "v")},
+            "step": torch.tensor(int(np.asarray(tree["step"])),
+                                 dtype=torch.int32)}

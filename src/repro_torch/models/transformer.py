@@ -1,12 +1,14 @@
-"""The LM for attention-only layer patterns: init, the teacher-forced
-``forward``, and decode against the Roaring-paged KV cache.
+"""The LM for attention-only layer patterns: init, ``forward`` (training
+and teacher-forced), ``lm_loss``, and decode against the Roaring-paged KV
+cache.
 
 Layers are stacked per *super-block* as in the reference: ``params
 ["blocks"]`` holds one dict per block kind of the super-block, each leaf
 with a leading ``n_superblocks`` axis, and a Python loop over super-blocks
-takes the place of the reference's ``lax.scan``. Patterns with MoE, SSM,
-RWKV or an encoder wait for later slices (ROADMAP queue 1) and raise
-``NotImplementedError``.
+takes the place of the reference's ``lax.scan``; ``remat="full"``
+checkpoints each super-block, as the reference checkpoints its scan body.
+Patterns with MoE, SSM, RWKV or an encoder wait for later slices (ROADMAP
+queue 1) and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import math
 from typing import Any, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import _device
 
@@ -79,36 +82,64 @@ def init_lm(cfg: ModelConfig, seed: int = 0, *, device=None) -> dict:
 
 
 # =============================================================================
-# forward (teacher-forced / prefill)
+# forward (training, teacher-forced, prefill)
 # =============================================================================
 
+def _superblock(params: dict, x: torch.Tensor, i: int, cfg: ModelConfig,
+                positions, block_lists) -> torch.Tensor:
+    for j, kind in enumerate(cfg.block_kinds()):
+        p = _layer(params["blocks"][j], i)
+        h = common.rms_norm(p["ln1"], x)
+        x = x + attn_mod.attention(p["attn"], h, cfg, positions=positions,
+                                   layer_kind=kind, block_lists=block_lists)
+        x = x + mlp_mod.mlp(p["mlp"], common.rms_norm(p["ln2"], x))
+    return x
+
+
 def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
-            block_lists=None):
+            block_lists=None, remat: str = "none"):
     """tokens: int[B, S] -> (logits [B, S, V], aux_loss).
 
-    Attention-only patterns, so ``aux_loss`` is always 0. ``block_lists``
-    (the Roaring block-sparse path) waits for the training slice."""
+    Attention-only patterns, so ``aux_loss`` is always 0. ``block_lists``:
+    optional (kv_idx, counts) tensors on the tokens' device for the Roaring
+    block-sparse path of global layers (``cfg.attn_impl == "sparse"``).
+    ``remat``: "none" or "full" (each super-block is recomputed in the
+    backward, so only super-block inputs are kept); the reference's "dots"
+    policy is not ported yet.
+    """
     check_supported(cfg)
+    if remat == "dots":
+        raise NotImplementedError('remat="dots" (save only matmul outputs) '
+                                  "is not ported yet; see ROADMAP.md queue 1")
+    if remat not in ("none", "full"):
+        raise ValueError(f"remat must be 'none' or 'full' (got {remat!r})")
     cdt = common.dtype_of(cfg.compute_dtype)
     x = common.embed(params["embed"], tokens).to(cdt)
     if cfg.logit_softcap is not None:           # gemma-style sqrt(d) scaling
         x = x * _sqrt_d(cfg, x)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
-    kinds = cfg.block_kinds()
     for i in range(cfg.n_superblocks):
-        for j, kind in enumerate(kinds):
-            p = _layer(params["blocks"][j], i)
-            h = common.rms_norm(p["ln1"], x)
-            x = x + attn_mod.attention(p["attn"], h, cfg, positions=positions,
-                                       layer_kind=kind,
-                                       block_lists=block_lists)
-            x = x + mlp_mod.mlp(p["mlp"], common.rms_norm(p["ln2"], x))
+        if remat == "full":
+            x = checkpoint(_superblock, params, x, i, cfg, positions,
+                           block_lists, use_reentrant=False)
+        else:
+            x = _superblock(params, x, i, cfg, positions, block_lists)
     x = common.rms_norm(params["final_norm"], x)
     table = params["unembed"] if not cfg.tie_embeddings else params["embed"]
     logits = common.unembed(table, x, softcap=cfg.logit_softcap,
                             vocab=cfg.vocab)
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def lm_loss(params: dict, tokens: torch.Tensor, labels: torch.Tensor,
+            cfg: ModelConfig, block_lists=None, aux_weight: float = 0.01):
+    """Mean next-token cross-entropy over every position (f32)."""
+    logits, aux = forward(params, tokens, cfg, block_lists=block_lists)
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return torch.mean(lse - ll) + aux_weight * aux
 
 
 # =============================================================================

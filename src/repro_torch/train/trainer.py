@@ -1,0 +1,132 @@
+"""Train-step builder: remat, microbatching, mixed precision, grad clipping.
+
+Parameters stay f32 and every layer computes in ``cfg.compute_dtype``, as
+in the reference. The step updates the train state **in place** (the
+optimizer's moments and the parameters; see ``optim``) and returns the same
+dict. The reference's ``grad_compression`` (the Roaring top-k cross-pod
+gradient mean) needs ``grad_comp``, which is not ported yet: it raises.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch import _tree
+from repro_torch.models import transformer as T
+from repro_torch.models.config import ModelConfig
+from repro_torch.optim import OptimizerDef, clip_by_global_norm
+
+
+def TrainState(params, opt_state, step) -> dict:
+    return {"params": params, "opt": opt_state,
+            "step": torch.tensor(int(step), dtype=torch.int32)}
+
+
+def _device_of(params) -> torch.device:
+    return _tree.leaves(params)[0].device
+
+
+def make_train_step(cfg: ModelConfig, optimizer: OptimizerDef, *,
+                    microbatch: Optional[int] = None,
+                    remat: str = "none",              # none | full
+                    max_grad_norm: float = 1.0,
+                    grad_compression: Optional[dict] = None,
+                    block_lists=None) -> Callable:
+    """Returns ``train_step(state, batch) -> (state, metrics)``.
+
+    batch: {"tokens": int[B, S+1], "mask": float[B, S+1]} (tensors or numpy
+    arrays) — inputs are tokens[:, :-1], labels tokens[:, 1:]. ``block_lists``
+    (kv_idx, counts) from ``sparsity.compile_mask`` feed the block-sparse
+    attention of global layers when ``cfg.attn_impl == "sparse"``. metrics:
+    ``loss`` and ``grad_norm`` (before clipping), 0-d f32 tensors on the
+    parameters' device.
+    """
+    if grad_compression is not None:
+        raise NotImplementedError(
+            "grad_compression needs the Roaring gradient compression of "
+            "grad_comp, which is not ported yet; see ROADMAP.md queue 1")
+    lists_on = {}
+
+    def lists_for(dev):
+        if block_lists is None:
+            return None
+        if dev not in lists_on:
+            lists_on[dev] = tuple(torch.as_tensor(a).to(dev, torch.int32)
+                                  for a in block_lists)
+        return lists_on[dev]
+
+    def loss_fn(params, tokens, labels, mask):
+        logits, aux = T.forward(params, tokens, cfg,
+                                block_lists=lists_for(tokens.device),
+                                remat=remat)
+        logits = logits.float()
+        # logsumexp form; the label's logit by a gather, which gives the
+        # reference's where-and-sum value exactly without a [B, S, V] mask
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = logits.gather(-1, labels.long()[..., None])[..., 0]
+        nll = lse - ll
+        denom = torch.clamp(mask.sum(), min=1.0)
+        return (nll * mask).sum() / denom + 0.01 * aux
+
+    def grad_fn(flat, params, tokens, labels, mask):
+        loss = loss_fn(params, tokens, labels, mask)
+        return loss.detach(), torch.autograd.grad(loss, flat)
+
+    def compute_grads(params, batch):
+        dev = _device_of(params)
+        toks = torch.as_tensor(batch["tokens"]).to(dev)
+        msk = torch.as_tensor(batch["mask"]).to(dev, torch.float32)
+        tokens, labels, mask = toks[:, :-1], toks[:, 1:], msk[:, 1:]
+        flat = _tree.leaves(params)
+        for p in flat:
+            p.requires_grad_(True)
+        if microbatch is None:
+            loss, grads = grad_fn(flat, params, tokens, labels, mask)
+            return loss, _tree.unflatten(params, list(grads))
+        B = tokens.shape[0]
+        if B % microbatch:
+            raise ValueError(f"batch {B} is not a multiple of microbatch "
+                             f"{microbatch}")
+        n_micro = B // microbatch
+        loss = torch.zeros((), dtype=torch.float32, device=dev)
+        acc = [torch.zeros_like(p, dtype=torch.float32) for p in flat]
+        for i in range(n_micro):
+            sl = slice(i * microbatch, (i + 1) * microbatch)
+            l, g = grad_fn(flat, params, tokens[sl], labels[sl], mask[sl])
+            loss = loss + l / n_micro
+            for a, gi in zip(acc, g):
+                a.add_(gi.float() / n_micro)
+        return loss, _tree.unflatten(params, acc)
+
+    def train_step(state, batch):
+        loss, grads = compute_grads(state["params"], batch)
+        grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
+        optimizer.update(grads, state["opt"], state["params"],
+                         int(state["step"]))
+        del grads
+        state["step"] = state["step"] + 1
+        return state, {"loss": loss, "grad_norm": gnorm.detach()}
+
+    return train_step
+
+
+def train_loop(cfg: ModelConfig, *, steps: int, batch: int, seq_len: int,
+               optimizer: OptimizerDef, data_iter, seed: int = 0,
+               log_every: int = 10, remat: str = "none", microbatch=None,
+               callback: Optional[Callable] = None, device=None):
+    """Single-host loop (examples and tests): random parameters from
+    ``seed`` on ``device`` (``None``: the card), ``steps`` steps over
+    ``data_iter(step)`` batches. Returns (state, losses)."""
+    params = T.init_lm(cfg, seed, device=device)
+    state = TrainState(params, optimizer.init(params), 0)
+    step_fn = make_train_step(cfg, optimizer, remat=remat,
+                              microbatch=microbatch)
+    losses = []
+    for s in range(steps):
+        state, metrics = step_fn(state, data_iter(s))
+        losses.append(float(metrics["loss"]))
+        if callback is not None:
+            callback(s, state, metrics)
+    return state, losses

@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain-torch versions, on the card.
 
-Every test here needs an NVIDIA card and skips without one (the ``cuda``
-fixture decides at run time). Run them on the card with
+Every test here needs an NVIDIA card. The module skips as a whole without
+one, so that a machine without one collects none of its tests. Run them on
+the card with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
@@ -13,13 +14,17 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import (KIND_CASES, case_rows, cuda,  # noqa: F401
+if not torch.cuda.is_available():
+    pytest.skip("needs an NVIDIA card (run on the chip)",
+                allow_module_level=True)
+
+from _torch_parity import (KIND_CASES, case_rows, cuda,  # noqa: F401,E402
                            pair_grid, to_t16)
-from repro_torch import search
-from repro_torch.kernels.roaring import fused as TF
-from repro_torch.kernels.roaring import kernel as TK
-from repro_torch.kernels.roaring import ops as TOPS
-from repro_torch.kernels.roaring import ref as TR
+from repro_torch import search  # noqa: E402
+from repro_torch.kernels.roaring import fused as TF  # noqa: E402
+from repro_torch.kernels.roaring import kernel as TK  # noqa: E402
+from repro_torch.kernels.roaring import ops as TOPS  # noqa: E402
+from repro_torch.kernels.roaring import ref as TR  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 

@@ -333,6 +333,10 @@ def _check_imports_with_jax_and_repro_blocked():
         "import repro_torch.serve, repro_torch.launch.serve\n"
         "import repro_torch.models.convert, repro_torch.configs\n"
         "import repro_torch.kernels.sparse_attn.kernel\n"
+        "import repro_torch.kernels.sparse_attn.ops\n"
+        "import repro_torch.sparsity, repro_torch.optim, repro_torch.train\n"
+        "import repro_torch.data, repro_torch.checkpoint\n"
+        "import repro_torch.runtime, repro_torch.launch.train\n"
         "assert not any(m.split('.')[0] in ('jax', 'repro') "
         "for m in sys.modules)\n"
         "print('ok')\n")
