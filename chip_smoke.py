@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--terms N] [--seed S]
 
 Builds the hand-written CUDA kernels from ``src/repro_torch`` and holds
-each against its plain-torch version on the card. Then it drives the two
+each against its plain-torch version on the card. Then it drives the
 paths of the port end to end:
 
 * the search service at full size — an index shaped like the MS MARCO
@@ -12,6 +12,12 @@ paths of the port end to end:
   over a 2,048-term Zipf vocabulary — in modes count / docs / topk, fused
   and per-op, checking sampled answers against an independent numpy
   oracle;
+* the bitmap-index store over the Star Schema Benchmark's LINEORDER at SF
+  10 (60,000,000 rows generated from the spec's column domains; equality
+  and bit-sliced columns, 916 chunks), answering the Q1 flight fused and
+  per-op against a numpy row filter, with a save / load round trip; then
+  the word-op and packed-array kernels through their entry points at the
+  store's own rows;
 * LM serving on the Roaring-paged KV cache at gemma2-2b's full width and
   depth (random weights from a seeded generator): 8 short requests and one
   whose prompt runs past the 4,096-token sliding window, each checked
@@ -103,6 +109,20 @@ LAUNCH_ARGS = ["--arch", "gemma2-2b", "--reduced", "--steps", "6",
                "--log-every", "100"]
 LAUNCH_FAIL_AT = {3}
 
+# the store phase: SSB LINEORDER (O'Neil, O'Neil, Chen, Revilak, Star
+# Schema Benchmark rev. 3, 2009) as a bitmap index, queried by the Q1 flight
+SSB_SF = 10
+SSB_ROWS_PER_SF = 6_000_000
+SSB_FIRST_DAY = np.datetime64("1992-01-01")
+SSB_DAYS = int((np.datetime64("1998-08-02") - SSB_FIRST_DAY).astype(
+    np.int64)) + 1
+SSB_BSI = ("lo_quantity", "lo_extendedprice")
+SSB_RATE_S = 3.0              # closed-loop fused count, seconds per query
+CONTAINER_OPS = ("and", "or", "xor", "andnot")
+# the kernels each path must launch
+SEARCH_KERNELS = ("intersect_dispatch", "intersect_dispatch_stacked",
+                  "fused_tree")
+
 # where each ported kernel replaces a TPU kernel
 KERNELS = {
     "intersect_dispatch": (
@@ -120,6 +140,12 @@ KERNELS = {
     "sparse_flash_attention": (
         "src/repro_torch/kernels/sparse_attn/csrc/sparse_flash.cu",
         "src/repro/kernels/sparse_attn/kernel.py:79"),
+    "container_op": (
+        "src/repro_torch/kernels/roaring/csrc/container_ops.cu",
+        "src/repro/kernels/roaring/kernel.py:118"),
+    "array_intersect": (
+        "src/repro_torch/kernels/roaring/csrc/container_ops.cu",
+        "src/repro/kernels/roaring/kernel.py:184"),
 }
 
 
@@ -460,8 +486,8 @@ def main_path(torch, S, K, obs, n_terms, seed, device="cuda"):
         raise AssertionError("the ladder dropped a rung on the card")
     if rung != fused_batches:
         raise AssertionError("not every fused batch ran the fused cuda rung")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in SEARCH_KERNELS:
+        if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the path")
 
     card = card_line() if device == "cuda" else device
@@ -644,6 +670,365 @@ def _row(name, launches, err, ms, pms, bound, shape, library=None):
             "max_abs_err": err, "ms": ms, "plain_ms": pms,
             "bound_ms": bound[0], "bound_by": bound[1], "library_ms": lib_ms}
 
+
+# =============================================================================
+# the Roaring object API's kernels and the bitmap-index store (SSB)
+# =============================================================================
+
+def check_containers(torch, cases, K, ref, seed):
+    """The word-op kernel (all four ops) and the packed-array kernel against
+    their plain versions on ``cases.container_pairs`` / ``array_pairs``
+    (card 0 / 1 / 4095 / 4096, value 65,535, all-ones rows, one EMPTY side,
+    both-EMPTY pairs over garbage payload) and on 4,096 random pairs each.
+    Exact: every output word and card equal."""
+    rng = np.random.default_rng(seed)
+    dev = "cuda"
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a).view(
+            np.int16 if a.dtype == np.uint16 else a.dtype)).to(dev)
+
+    n = 4096
+    grids = [cases.container_pairs(rng)]
+    kinds = rng.integers(0, 4, 2 * n).astype(np.int32)
+    grids.append((rng.integers(0, 1 << 16, (n, 4096)).astype(np.uint16),
+                  rng.integers(0, 1 << 16, (n, 4096)).astype(np.uint16),
+                  kinds))
+    for A, B, kinds in grids:
+        a, b, k = t(A), t(B), t(kinds)
+        for op in cases.CONTAINER_OPS:
+            got = K.container_op_cuda(a, b, k, op)
+            torch.cuda.synchronize()
+            _same(f"container_op {op}", got,
+                  ref.container_op_ref(a, b, k, op))
+    grids = [cases.array_pairs(rng)]
+    A = np.full((n, 4096), 0xFFFF, np.uint16)
+    B = np.full((n, 4096), 0xFFFF, np.uint16)
+    cards = rng.integers(0, 4097, 2 * n).astype(np.int32)
+    for i in range(n):
+        for row, c in ((A[i], cards[2 * i]), (B[i], cards[2 * i + 1])):
+            row[:c] = np.sort(rng.choice(1 << 16, c, replace=False))
+    grids.append((A, B, cards))
+    for A, B, cards in grids:
+        a, b, c = t(A), t(B), t(cards)
+        got = K.array_intersect_cuda(a, b, c)
+        torch.cuda.synchronize()
+        _same("array_intersect", got, ref.array_intersect_ref(a, b, c))
+    log(f"check container_op: {len(cases.CONTAINER_OPS)} ops x (the case "
+        f"grid + {n} random pairs) bit-identical; check array_intersect: "
+        f"the case grid + {n} random pairs bit-identical")
+
+
+def ssb_lineorder(sf, seed):
+    """SSB LINEORDER at scale factor ``sf`` (SF x 6,000,000 rows) from the
+    spec's column domains: orders of 1-7 lines (TPC-H) in order-key order,
+    each with one order date uniform over 1992-01-01 .. 1998-08-02 shared
+    by its lines; lo_discount 0-10 and lo_quantity 1-50 uniform per line;
+    lo_extendedprice = lo_quantity x P_RETAILPRICE (cents) of a uniform
+    part key among SF's 200,000 x (1 + log2 SF) parts. The date columns are
+    the DATE dimension's d_year, d_yearmonthnum, d_weeknuminyear."""
+    n_rows = int(round(sf * SSB_ROWS_PER_SF))
+    rng = np.random.default_rng(seed)
+    lines = rng.integers(1, 8, n_rows // 4 + 1024)
+    while lines.sum() < n_rows:
+        lines = np.concatenate([lines, rng.integers(1, 8, 1024)])
+    lines = lines[:int(np.searchsorted(np.cumsum(lines), n_rows)) + 1]
+    day = SSB_FIRST_DAY + rng.integers(0, SSB_DAYS, lines.size)
+    year = day.astype("datetime64[Y]").astype(np.int64) + 1970
+    month = day.astype("datetime64[M]").astype(np.int64) % 12 + 1
+    week = (day - day.astype("datetime64[Y]")).astype(np.int64) // 7 + 1
+
+    def per_line(x):
+        return np.repeat(x, lines)[:n_rows]
+
+    n_parts = 200_000 * int(1 + np.log2(max(sf, 1)))
+    partkey = rng.integers(1, n_parts + 1, n_rows)
+    quantity = rng.integers(1, 51, n_rows)
+    retail = 90_000 + (partkey // 10) % 20_001 + 100 * (partkey % 1000)
+    return {"lo_year": per_line(year),
+            "lo_yearmonthnum": per_line(year * 100 + month),
+            "lo_weeknuminyear": per_line(week),
+            "lo_discount": rng.integers(0, 11, n_rows),
+            "lo_quantity": quantity,
+            "lo_extendedprice": quantity * retail}
+
+
+def ssb_queries(ST):
+    """SSB's Q1 flight (O'Neil et al., rev. 3, section 3.1) over LINEORDER:
+    name -> (store predicate, numpy row filter)."""
+    def between(r, col, lo, hi):
+        return (r[col] >= lo) & (r[col] <= hi)
+
+    return {
+        "Q1.1": (ST.and_(ST.eq("lo_year", 1993),
+                         ST.range_("lo_discount", 1, 3),
+                         ST.range_("lo_quantity", None, 24)),
+                 lambda r: (r["lo_year"] == 1993)
+                 & between(r, "lo_discount", 1, 3) & (r["lo_quantity"] < 25)),
+        "Q1.2": (ST.and_(ST.eq("lo_yearmonthnum", 199401),
+                         ST.range_("lo_discount", 4, 6),
+                         ST.range_("lo_quantity", 26, 35)),
+                 lambda r: (r["lo_yearmonthnum"] == 199401)
+                 & between(r, "lo_discount", 4, 6)
+                 & between(r, "lo_quantity", 26, 35)),
+        "Q1.3": (ST.and_(ST.eq("lo_weeknuminyear", 6),
+                         ST.eq("lo_year", 1994),
+                         ST.range_("lo_discount", 5, 7),
+                         ST.range_("lo_quantity", 26, 35)),
+                 lambda r: (r["lo_weeknuminyear"] == 6)
+                 & (r["lo_year"] == 1994) & between(r, "lo_discount", 5, 7)
+                 & between(r, "lo_quantity", 26, 35)),
+    }
+
+
+def store_path(torch, ST, K, pr, FS, sf, seed, device="cuda"):
+    """SSB LINEORDER as a bitmap index on the card: build, the Q1 flight
+    fused and per-op (count, rows, sum of lo_extendedprice) against a numpy
+    row filter of the same records, a closed-loop fused count rate per
+    query, and a save -> load(check=True) -> save round trip. Returns the
+    store and its records."""
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    card = card_line() if device == "cuda" else device
+    t = time.perf_counter()
+    records = ssb_lineorder(sf, seed)
+    t_gen = time.perf_counter() - t
+    t = time.perf_counter()
+    store = ST.BitmapStore.build(records, bsi=SSB_BSI, device=device)
+    sync()
+    t_build = time.perf_counter() - t
+    st = store._stack
+    kinds = np.bincount(st.kinds.cpu().numpy().ravel(), minlength=4)
+    log(f"ssb: LINEORDER SF {sf} = {store.n_rows} rows; {store!r}; stack "
+        f"{tuple(st.payload.shape)} = {st.payload.numel() * 2 / 1e9:.3f} GB "
+        f"on the card; containers empty/array/bitmap/run = {kinds.tolist()}"
+        f"; records {t_gen:.1f} s, build {t_build:.1f} s (host build and "
+        f"copy; {card})")
+    queries = ssb_queries(ST)
+    K.reset_launch_counts()
+    per_query = {}
+    answers = {}
+    timings = {}
+
+    def timed(key, fn):
+        t = time.perf_counter()
+        out = fn()
+        sync()
+        timings[key] = (time.perf_counter() - t) * 1e3
+        return out
+
+    for name, (pred, _) in queries.items():
+        before = dict(K.launch_counts)
+        got = {}
+        for fused in (True, False):
+            n0 = K.launch_counts["fused_tree"]
+            got[("count", fused)] = timed(
+                (name, "count", fused),
+                lambda: store.count(pred, fused=fused))
+            got[("rows", fused)] = timed(
+                (name, "rows", fused),
+                lambda: store.query(pred, fused=fused).serialize())
+            if fused and K.launch_counts["fused_tree"] - n0 != 2:
+                raise AssertionError(f"{name}: a fused query is one "
+                                     "fused_tree launch")
+        got["sum"] = timed((name, "sum"), lambda: store.sum_(
+            "lo_extendedprice", pred))
+        answers[name] = got
+        per_query[name] = {k: v - before[k] for k, v in
+                           K.launch_counts.items() if v - before[k]}
+    launches = dict(K.launch_counts)
+    for name, (_, mask) in queries.items():
+        ids = np.nonzero(mask(records))[0]
+        want = pr.RoaringBitmap.from_sorted_unique(ids).run_optimize()
+        want_bytes = FS.serialize(want)
+        got = answers[name]
+        for fused in (True, False):
+            if got[("count", fused)] != ids.size:
+                raise AssertionError(f"{name}: count (fused={fused}) "
+                                     "differs from the row filter")
+            if got[("rows", fused)] != want_bytes:
+                raise AssertionError(f"{name}: rows (fused={fused}) differ "
+                                     "from the row filter's bytes")
+        want_sum = int(records["lo_extendedprice"][ids].sum())
+        if got["sum"] != want_sum:
+            raise AssertionError(f"{name}: sum {got['sum']} != {want_sum}")
+        log(f"{name}: {ids.size} rows, sum(lo_extendedprice) = {want_sum} "
+            "(SSB aggregates sum(lo_extendedprice * lo_discount), which the "
+            "store cannot express; this is the sum of one column); fused "
+            "and per-op rows byte-identical to the numpy row filter; "
+            f"launches {per_query[name]}; first calls (plan compile "
+            "included), ms: " + ", ".join(
+                f"{what} {'fused' if fused else 'per-op'} "
+                f"{timings[(name, what, fused)]:.1f}"
+                for fused in (True, False) for what in ("count", "rows"))
+            + f", sum_ {timings[(name, 'sum')]:.1f} ({card})")
+    for name in SEARCH_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 "store path")
+    log(f"launches on the store path: {launches}")
+    for name, (pred, _) in queries.items():
+        n, t = 0, time.perf_counter()
+        while time.perf_counter() - t < SSB_RATE_S:
+            store.count(pred, fused=True)
+            n += 1
+        dt = time.perf_counter() - t
+        log(f"{name} fused count, closed loop: {n} in {dt:.2f} s = "
+            f"{n / dt:.1f} QPS ({card})")
+    if device == "cuda":
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as p:
+            t = time.perf_counter()
+            for _ in range(100):
+                for pred, _ in queries.values():
+                    store.count(pred, fused=True)
+            sync()
+            wall_ms = (time.perf_counter() - t) * 1e3
+        log(f"profile store: {100 * len(queries)} fused counts (Q1.1-Q1.3 "
+            f"in turn), wall {wall_ms:.1f} ms; {device_summary(p, wall_ms)} "
+            f"({card})")
+    stats = store.cache_stats()
+    if stats["fallbacks"]:
+        raise AssertionError("a store query took the uncompiled fallback")
+    t = time.perf_counter()
+    blob = store.save()
+    t_save = time.perf_counter() - t
+    t = time.perf_counter()
+    cells = store.n_slabs * store.n_chunks
+    again = ST.BitmapStore.load(blob, check=True, max_stack_cells=cells,
+                                device=device)
+    t_load = time.perf_counter() - t
+    if again.save() != blob:
+        raise AssertionError("save -> load(check=True) -> save differs")
+    del again
+    log(f"save {len(blob)} bytes in {t_save:.1f} s; load(check=True, "
+        f"max_stack_cells={cells}) in {t_load:.1f} s re-saves "
+        f"byte-identically; plan cache {stats}")
+    return store, records
+
+
+def _plain_chunks(torch, fn, n, chunk=32768):
+    """A plain version over ``n`` rows in row chunks (its intermediates at
+    once would not fit beside the store); outputs concatenated."""
+    outs = [fn(slice(s, min(n, s + chunk))) for s in range(0, n, chunk)]
+    return tuple(torch.cat(x) for x in zip(*outs))
+
+
+def container_rows(torch, K, ops, ref, tr, store, records):
+    """Both kernels through their entry points at the store's own data, then
+    against their plain versions and timed with CUDA events.
+
+    container_op: A = the posting rows of slabs 2 .. N-2 lifted to the
+    bitmap domain, B = those of slabs 3 .. N-1 (contiguous slices of one
+    lifted tensor). array_intersect: the rows of each lo_yearmonthnum slab
+    against those of the lo_weeknuminyear slab of that month's 15th day, in
+    packed-array form (the store keeps them as run rows where best-of-three
+    says so)."""
+    st = store._stack
+    N, C = st.kinds.shape
+    flat_kind = st.kinds.reshape(-1)
+    flat_card = st.cards.reshape(-1)
+    flat_data = st.payload.reshape(-1, 4096)
+    lifted = torch.empty_like(flat_data)
+    for s in range(0, N * C, 16384):
+        e = min(N * C, s + 16384)
+        lifted[s:e] = tr.narrow(tr._lift_rows(flat_data[s:e],
+                                              flat_card[s:e],
+                                              flat_kind[s:e]))
+    a, b = lifted[2 * C:(N - 1) * C], lifted[3 * C:]
+    tags = torch.stack([flat_kind[2 * C:(N - 1) * C], flat_kind[3 * C:]],
+                       dim=1).reshape(-1).contiguous()
+
+    ym = store.column("lo_yearmonthnum")
+    wk = store.column("lo_weeknuminyear")
+    week_of = {}
+    for v in ym.values:
+        day = np.datetime64(f"{v // 100}-{v % 100:02d}-15")
+        week_of[v] = int((day - day.astype("datetime64[Y]")).astype(
+            np.int64) // 7 + 1)
+    sa = torch.arange(ym.base_slot, ym.base_slot + ym.n_slabs,
+                      device=st.device)
+    sb = torch.tensor([wk.base_slot + wk.values.index(week_of[v])
+                       for v in ym.values], device=st.device)
+
+    def as_arrays(slots):
+        k, c = st.kinds[slots].reshape(-1), st.cards[slots].reshape(-1)
+        d = st.payload[slots].reshape(-1, 4096)
+        if bool(((k == tr.KIND_BITMAP) | (c > 4096)).any()):
+            raise AssertionError("a month / week row does not fit an array")
+        runs = torch.nonzero(k == tr.KIND_RUN).flatten()
+        d = d.clone()
+        d[runs] = tr.narrow(tr._arrays_from_runs_rows(tr.widen(d[runs]),
+                                                      c[runs]))
+        return d, c
+
+    ia, ca = as_arrays(sa)
+    ib, cb = as_arrays(sb)
+    cards = torch.stack([ca, cb], dim=1).reshape(-1).contiguous()
+    n_runs = int((st.kinds[sa] == tr.KIND_RUN).sum() +
+                 (st.kinds[sb] == tr.KIND_RUN).sum())
+    torch.cuda.synchronize()
+
+    K.reset_launch_counts()
+    outs = {op: ops.container_op(a, b, tags, op) for op in CONTAINER_OPS}
+    hits, count = ops.array_intersect(ia, ib, cards)
+    torch.cuda.synchronize()
+    launches = dict(K.launch_counts)
+    for name in ("container_op", "array_intersect"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched")
+
+    # the month x week answer through the store's own row filter
+    ymv, wkv = records["lo_yearmonthnum"], records["lo_weeknuminyear"]
+    want = sum(int(np.count_nonzero((ymv == v) & (wkv == week_of[v])))
+               for v in ym.values)
+    if int(count.sum()) != want:
+        raise AssertionError(f"array_intersect found {int(count.sum())} "
+                             f"rows, the row filter {want}")
+
+    rows = []
+    # a and b are slices of one lifted tensor (b's row r is a's row r + C):
+    # each row of slabs 2 .. N-1 that a live pair reads counts once; every
+    # pair writes its 8 kB row and card, reads its two kind tags
+    live = (tags[0::2] != 0) | (tags[1::2] != 0)
+    n_live = int(live.sum())
+    read = torch.zeros(((N - 2) * C,), dtype=torch.bool, device=st.device)
+    read[:a.shape[0]] |= live
+    read[C:] |= live
+    nbytes = int(read.sum()) * 8192 + a.shape[0] * (8192 + 8 + 4)
+    bound = _bound(nbytes, n_live * 2048 * 3)
+    ms, pms, err = [], [], 0
+    for op in CONTAINER_OPS:
+        plain = _plain_chunks(torch, lambda s: ref.container_op_ref(
+            a[s], b[s], tags[2 * s.start:2 * s.stop], op), a.shape[0])
+        err = max(err, _max_err(torch, outs[op], plain))
+        ms.append(time_ms(torch, lambda: K.container_op_cuda(
+            a, b, tags, op), 5))
+        pms.append(time_ms(torch, lambda: _plain_chunks(
+            torch, lambda s: ref.container_op_ref(
+                a[s], b[s], tags[2 * s.start:2 * s.stop], op),
+            a.shape[0]), 1, warmup=0))
+        log(f"container_op {op}: {ms[-1]:.4f} ms, plain {pms[-1]:.3f} ms")
+    rows.append(_row("container_op", launches, err, sum(ms) / len(ms),
+                     sum(pms) / len(pms), bound,
+                     f"{a.shape[0]} row pairs of slabs 2..{N - 2} x "
+                     f"3..{N - 1} ({n_live} live), mean of the four ops"))
+
+    plain = ref.array_intersect_ref(ia, ib, cards)
+    err = _max_err(torch, (hits, count), plain)
+    ms = time_ms(torch, lambda: K.array_intersect_cuda(ia, ib, cards), 10)
+    pms = time_ms(torch, lambda: ref.array_intersect_ref(ia, ib, cards), 2)
+    ca64, cb64 = ca.cpu().numpy().astype(np.int64), \
+        cb.cpu().numpy().astype(np.int64)
+    nbytes = int((2 * (ca64 + cb64)).sum()) + ia.shape[0] * (8192 + 8 + 4)
+    bound = _bound(nbytes, int((ca64 * _log2(cb64)).sum()))
+    rows.append(_row("array_intersect", launches, err, ms, pms, bound,
+                     f"{ia.shape[0]} row pairs ({ym.n_slabs} months x {C} "
+                     f"chunks; mean card {ca64.mean():.0f} x "
+                     f"{cb64.mean():.0f}; {n_runs} of {2 * ia.shape[0]} "
+                     f"rows stored as runs, fed in packed-array form); "
+                     f"{want} rows in month and week"))
+    return rows
 
 # =============================================================================
 # LM serving on the Roaring-paged KV cache
@@ -1346,6 +1731,10 @@ def main(argv=None) -> int:
     from repro_torch.kernels.roaring import ops
     from repro_torch.kernels.roaring import ref
     from repro_torch import serve as SV
+    from repro_torch import store as ST
+    from repro_torch.core import py_roaring as pr
+    from repro_torch.core import torch_roaring as tr
+    from repro_torch.roaring import RoaringFormatSpec as FS
     from repro_torch.kernels.build import build
     from repro_torch.configs import get_config
     from repro_torch.kernels.sparse_attn import cases as pd_cases
@@ -1373,6 +1762,7 @@ def main(argv=None) -> int:
     log("kernels: " + json.dumps(list(KERNELS)))
 
     check_kernels(torch, cases, K, ops, ref, F, args.seed)
+    check_containers(torch, cases, K, ref, args.seed)
     check_paged_decode(torch, pd_cases, SK, SR, args.seed)
     check_sparse_flash(torch, pd_cases, SK, SR, args.seed)
     t = time.perf_counter()
@@ -1383,6 +1773,14 @@ def main(argv=None) -> int:
     where_time_goes(torch, S, obs, index, terms, args.seed)
     del index, captured
     log(f"search phases: {time.perf_counter() - t:.1f} s")
+
+    t = time.perf_counter()
+    store, records = store_path(torch, ST, K, pr, FS, SSB_SF, args.seed)
+    rows += container_rows(torch, K, ops, ref, tr, store, records)
+    del store, records
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"store phases: {time.perf_counter() - t:.1f} s")
 
     t = time.perf_counter()
     cfg = get_config(SERVE_ARCH)

@@ -96,11 +96,12 @@ def bitmap_to_array(words: np.ndarray) -> np.ndarray:
 
 
 def array_to_bitmap(arr: np.ndarray) -> np.ndarray:
-    """Set the bits of a sorted u16 array in a fresh 1024-word bitmap."""
-    words = np.zeros(BITMAP_WORDS, dtype=_U64)
-    a = arr.astype(np.int64)
-    np.bitwise_or.at(words, a >> 6, (_U64(1) << (a & 63).astype(_U64)))
-    return words
+    """Set the bits of a sorted u16 array in a fresh 1024-word bitmap
+    (one byte per bit, packed little-endian: bit v lands in word v >> 6 at
+    position v & 63)."""
+    bits = np.zeros(CHUNK_SIZE, dtype=np.uint8)
+    bits[np.asarray(arr, dtype=np.intp)] = 1
+    return np.packbits(bits, bitorder="little").view("<u8").astype(_U64)
 
 
 # =============================================================================
@@ -696,13 +697,16 @@ class RoaringBitmap:
         if v.size == 0:
             return rb
         v = np.asarray(v, dtype=np.int64)
-        hi = v >> CHUNK_BITS
         lo = (v & (CHUNK_SIZE - 1)).astype(_U16)
-        boundaries = np.nonzero(np.diff(hi))[0] + 1
-        starts = np.concatenate(([0], boundaries))
-        ends = np.concatenate((boundaries, [v.size]))
-        for s, e in zip(starts.tolist(), ends.tolist()):
-            key = int(hi[s])
+        # each chunk's segment by a search of the sorted values (no pass
+        # over every value to find the boundaries)
+        keys = np.arange(int(v[0]) >> CHUNK_BITS,
+                         (int(v[-1]) >> CHUNK_BITS) + 1, dtype=np.int64)
+        starts = np.searchsorted(v, keys << CHUNK_BITS)
+        ends = np.append(starts[1:], v.size)
+        live = ends > starts
+        for key, s, e in zip(keys[live].tolist(), starts[live].tolist(),
+                             ends[live].tolist()):
             chunk = lo[s:e]
             if chunk.size > ARRAY_MAX:
                 rb.keys.append(key)

@@ -11,12 +11,18 @@ container type tag (0 empty / 1 array / 2 bitmap / 3 run).
 This module holds the row-state algebra the query engine runs on: the AND
 combine goes through the kind-dispatch kernel (``ops.intersect_dispatch``:
 CUDA on the card, its plain version on the CPU); OR, ANDNOT and the
-best-of-three canonicalization (``_finalize``) are plain torch. Where the
-reference guards an expensive pass with ``lax.cond``, this module computes
-it over just the rows that need it (selected with ``torch.nonzero``); each
-such selection is one host sync — a ``_finalize`` costs at most six, an
-``_or_rows`` / ``_andnot_rows`` step two to four. Rows no pass touches get
-the same fill values as in the reference, so results are byte-identical.
+best-of-three canonicalization (``_finalize``) are plain torch. On top of
+it sit the constructors (``from_indices``, ``from_dense_array``,
+``from_ranges``), the access operations (``contains``, ``rank``,
+``slab_select``, ``extract_row``) and the pairwise and N-way set algebra
+(``slab_and`` / ``slab_or`` / ``slab_xor`` / ``slab_andnot``, their
+cardinality-only forms, ``union_many_slabs``) that the object API wraps.
+Where the reference guards an expensive pass with ``lax.cond``, this
+module computes it over just the rows that need it (selected with
+``torch.nonzero``); each such selection is one host sync — a ``_finalize``
+costs at most six, an ``_or_rows`` / ``_andnot_rows`` step two to four.
+Rows no pass touches get the same fill values as in the reference, so
+results are byte-identical.
 """
 
 from __future__ import annotations
@@ -47,8 +53,13 @@ FORM_ARRAY, FORM_BITS, FORM_RUNS = 0, 1, 2
 __all__ = [
     "CHUNK_BITS", "CHUNK_SIZE", "ARRAY_MAX", "ROW_WORDS", "MAX_RUNS",
     "KEY_SENTINEL", "KIND_EMPTY", "KIND_ARRAY", "KIND_BITMAP", "KIND_RUN",
-    "RoaringSlab", "from_roaring", "to_roaring", "to_indices",
-    "row_bits_to_array", "row_nruns_bits",
+    "RoaringSlab", "empty", "from_indices", "from_dense_array",
+    "from_ranges", "from_roaring", "to_roaring", "to_indices",
+    "extract_row", "contains", "rank", "slab_select", "slab_run_optimize",
+    "slab_and", "slab_and_card", "slab_or_card", "slab_jaccard",
+    "slab_and_many", "slab_and_card_many", "slab_or", "slab_xor",
+    "slab_andnot", "slab_and_bitmap_domain", "slab_or_bitmap_domain",
+    "union_many_slabs", "row_bits_to_array", "row_nruns_bits",
 ]
 
 
@@ -607,3 +618,500 @@ def to_indices(slab: RoaringSlab, max_out: Optional[int] = None):
     out[:n] = vals[:n]
     valid = torch.arange(max_out, device=bits.device) < vals.numel()
     return out, valid
+
+
+
+# =============================================================================
+# construction
+# =============================================================================
+
+def empty(capacity: int, device) -> RoaringSlab:
+    """All-empty slab: every row ``KIND_EMPTY``, card 0, key
+    ``KEY_SENTINEL``, zero payload — the identity of ``slab_or`` and
+    ``union_many_slabs``."""
+    return RoaringSlab(
+        keys=torch.full((capacity,), KEY_SENTINEL, dtype=torch.int32,
+                        device=device),
+        card=torch.zeros((capacity,), dtype=torch.int32, device=device),
+        kind=torch.zeros((capacity,), dtype=torch.int32, device=device),
+        data=torch.zeros((capacity, ROW_WORDS), dtype=torch.int16,
+                         device=device))
+
+
+def from_indices(idx: torch.Tensor, valid: torch.Tensor,
+                 capacity: int) -> RoaringSlab:
+    """Slab from (padded) *sorted unique* integer indices on the tensors'
+    device: ``idx`` i64/i32[M] ascending with invalid entries at the end
+    (``valid`` false). Elements sharing high 16 bits land in one container
+    (array up to 4096 values, bitmap above); containers past ``capacity``
+    are dropped."""
+    dev = idx.device
+    idx = idx.to(torch.int64)
+    valid = valid.to(torch.bool)
+    M = idx.shape[0]
+    hi = torch.where(valid, idx >> CHUNK_BITS, KEY_SENTINEL)
+    lo = (idx & (CHUNK_SIZE - 1)).to(torch.int32)
+    first = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
+                       hi[1:] != hi[:-1]]) & valid
+    seg = torch.cumsum(first.to(torch.int64), 0) - 1
+    keep = valid & (seg < capacity)               # containers past capacity
+    seg = torch.where(keep, seg, capacity)
+    counts = torch.zeros((capacity + 1,), dtype=torch.int32, device=dev)
+    counts.index_add_(0, seg, torch.ones_like(seg, dtype=torch.int32))
+    counts = counts[:capacity]
+    keys = torch.full((capacity + 1,), KEY_SENTINEL, dtype=torch.int64,
+                      device=dev)
+    keys[torch.where(first & keep, seg, capacity)] = torch.where(
+        first & keep, hi, KEY_SENTINEL)
+    keys = torch.where(counts > 0, keys[:capacity], KEY_SENTINEL).to(
+        torch.int32)
+    seg_start = torch.cumsum(counts, 0) - counts
+    rank_ = (torch.arange(M, device=dev)
+             - seg_start[seg.clamp(max=max(capacity - 1, 0))])
+    in_arr = keep & (rank_ < ROW_WORDS)
+    flat = (capacity + 1) * ROW_WORDS              # last row: the drop bin
+    arr = torch.zeros((flat,), dtype=torch.int32, device=dev)
+    arr.index_put_((torch.where(in_arr, seg * ROW_WORDS + rank_, flat - 1),),
+                   torch.where(in_arr, lo, 0), accumulate=True)
+    bits = torch.zeros((flat,), dtype=torch.int32, device=dev)
+    bits.index_put_((torch.where(keep, seg * ROW_WORDS + (lo >> 4),
+                                 flat - 1),),
+                    torch.where(keep, 1 << (lo & 15), 0), accumulate=True)
+    arr = arr.reshape(capacity + 1, ROW_WORDS)[:capacity]
+    bits = bits.reshape(capacity + 1, ROW_WORDS)[:capacity] & 0xFFFF
+    is_bitmap = counts > ARRAY_MAX
+    arr = torch.where(_slots(dev)[None, :] < counts[:, None], arr, 0xFFFF)
+    data = torch.where(is_bitmap[:, None], bits, arr)
+    kind = torch.where(counts == 0, KIND_EMPTY,
+                       torch.where(is_bitmap, KIND_BITMAP, KIND_ARRAY))
+    return RoaringSlab(keys=keys, card=counts, kind=kind.to(torch.int32),
+                       data=narrow(data))
+
+
+def from_dense_array(values, capacity: int, max_elems: int,
+                     device) -> RoaringSlab:
+    """Host numpy values -> slab on ``device`` (deduplicated, sorted, padded
+    to ``max_elems``)."""
+    v = np.unique(np.asarray(values, dtype=np.int64))
+    if v.size > max_elems:
+        raise ValueError(f"{v.size} distinct values exceed max_elems "
+                         f"{max_elems}")
+    idx = np.zeros((max_elems,), np.int64)
+    idx[: v.size] = v
+    if v.size:
+        idx[v.size:] = v[-1]           # keep the padded tail sorted
+    valid = np.arange(max_elems) < v.size
+    return from_indices(torch.from_numpy(idx).to(device),
+                        torch.from_numpy(valid).to(device), capacity)
+
+
+def from_ranges(ranges, capacity: int, device) -> RoaringSlab:
+    """Run-row slab from half-open ``[start, end)`` integer ranges (run
+    containers built directly, no element materialization)."""
+    from repro_torch.core import py_roaring as pr
+
+    return from_roaring(pr.RoaringBitmap.from_ranges(ranges), capacity,
+                        device)
+
+
+def slab_run_optimize(slab: RoaringSlab) -> RoaringSlab:
+    """``runOptimize``: re-canonicalize every row best-of-three."""
+    return _finalize_rows(slab.keys, slab.data, slab.card, slab.kind)
+
+
+def extract_row(slab: RoaringSlab, r: int, max_out: int = ARRAY_MAX):
+    """Packed sorted values of container ``r`` (Algorithm 2 on one row):
+    (values i32[max_out], valid bool[max_out]); zeros past the card."""
+    bits = _lift_rows(slab.data[r:r + 1], slab.card[r:r + 1],
+                      slab.kind[r:r + 1])
+    arr = row_bits_to_array(bits)[0]
+    valid = _slots(bits.device) < slab.card[r]
+    return arr[:max_out], valid[:max_out]
+
+
+# =============================================================================
+# membership / rank / select (batched over query values)
+# =============================================================================
+
+def _locate(slab: RoaringSlab, x: torch.Tensor):
+    """(row, key hit, low 16 bits) of each value of ``x`` (flattened)."""
+    x = x.reshape(-1).to(torch.int64)
+    hi = (x >> CHUNK_BITS).to(torch.int32)
+    lo = (x & (CHUNK_SIZE - 1)).to(torch.int32)
+    C = slab.keys.shape[0]
+    row = torch.searchsorted(slab.keys.contiguous(), hi.contiguous())
+    row_c = row.clamp(max=C - 1)
+    return row_c, slab.keys[row_c] == hi, lo
+
+
+def contains(slab: RoaringSlab, queries: torch.Tensor) -> torch.Tensor:
+    """Batched membership (paper S3): first-level binary search of the
+    keys, then per kind a bitmap word probe, a 13-step lower bound over the
+    packed array, or a 12-step search of the run starts — one gathered word
+    (two for runs) per step, never a whole row."""
+    q = torch.as_tensor(queries, device=slab.keys.device)
+    row, key_hit, lo = _locate(slab, q)
+    card = slab.card[row]
+    kind = slab.kind[row]
+
+    def at(i):
+        return widen(slab.data[row, i.long()])
+
+    bit_hit = ((at(lo >> 4) >> (lo & 15)) & 1) == 1
+    l = torch.zeros_like(lo)
+    h = card.clone()
+    for _ in range(13):
+        mid = (l + h) // 2
+        go_right = at(mid.clamp(0, ROW_WORDS - 1)) < lo
+        l, h = torch.where(go_right, mid + 1, l), torch.where(go_right, h,
+                                                              mid)
+    arr_hit = (l < card) & (at(l.clamp(0, ROW_WORDS - 1)) == lo)
+    l = torch.zeros_like(lo)
+    h = torch.full_like(lo, MAX_RUNS)
+    for _ in range(12):
+        open_ = l < h
+        mid = (l + h) // 2
+        mid_c = (2 * mid).clamp(0, ROW_WORDS - 2)
+        s, ln = at(mid_c), at(mid_c + 1)
+        key = torch.where(s + ln < CHUNK_SIZE, s, CHUNK_SIZE)
+        go_right = open_ & (key <= lo)
+        l, h = (torch.where(go_right, mid + 1, l),
+                torch.where(open_ & ~go_right, mid, h))
+    ri = (l - 1).clamp(0, MAX_RUNS - 1)
+    rs, rln = at(2 * ri), at(2 * ri + 1)
+    run_hit = (l > 0) & (rs + rln < CHUNK_SIZE) & (lo <= rs + rln)
+    hit = torch.where(kind == KIND_BITMAP, bit_hit,
+                      torch.where(kind == KIND_ARRAY, arr_hit,
+                                  (kind == KIND_RUN) & run_hit))
+    return (hit & key_hit).reshape(q.shape)
+
+
+def rank(slab: RoaringSlab, x) -> torch.Tensor:
+    """# elements <= x (per value of ``x``): whole-container counters below
+    x's key plus the popcount of x's container up to x."""
+    x = torch.as_tensor(x, device=slab.keys.device)
+    row, hit, lo = _locate(slab, x)
+    hi = (x.reshape(-1).to(torch.int64) >> CHUNK_BITS)
+    full = torch.where(slab.keys[None, :].to(torch.int64) < hi[:, None],
+                       slab.card[None, :], 0).sum(1, dtype=torch.int64)
+    bits = _lift_rows(slab.data[row], slab.card[row], slab.kind[row])
+    word = (lo >> 4)[:, None]
+    partial = _row_popcount(torch.where(_slots(bits.device)[None, :] < word,
+                                        bits, 0))
+    last = torch.gather(bits, 1, word.long())[:, 0] & (
+        (2 << (lo & 15)) - 1)
+    in_row = partial + _D.popcount16(last)
+    return (full + torch.where(hit, in_row, 0)).reshape(x.shape)
+
+
+def slab_select(slab: RoaringSlab, j) -> torch.Tensor:
+    """Value of the j-th (0-based) smallest element (per value of ``j``);
+    -1 out of range. The container from the cardinality prefix sums, then
+    per kind a direct gather (array), a search of the run-length prefix
+    sums (run) or a bit-rank over the one row (bitmap)."""
+    j = torch.as_tensor(j, device=slab.keys.device)
+    jf = j.reshape(-1).to(torch.int64)
+    csum = torch.cumsum(slab.card.to(torch.int64), 0)
+    C = slab.keys.shape[0]
+    total = csum[-1]
+    row = torch.searchsorted(csum, jf, right=True).clamp(max=C - 1)
+    before = torch.where(row > 0, csum[(row - 1).clamp(min=0)], 0)
+    j_in = jf - before
+    kind = slab.kind[row]
+    drow = widen(slab.data[row])
+    arr_val = torch.gather(drow, 1, j_in.clamp(0, ROW_WORDS - 1)[:, None])[:,
+                                                                          0]
+    p = drow.reshape(-1, MAX_RUNS, 2)
+    s, ln = p[..., 0], p[..., 1]
+    lens = torch.where(s + ln < CHUNK_SIZE, ln + 1, 0).to(torch.int64)
+    lcum = torch.cumsum(lens, 1)
+    r = torch.searchsorted(lcum, j_in[:, None], right=True).clamp(
+        max=MAX_RUNS - 1)
+    run_val = (torch.gather(s, 1, r)[:, 0] + j_in
+               - (torch.gather(lcum, 1, r) - torch.gather(lens, 1, r))[:, 0])
+    bit_pos = torch.zeros_like(jf)
+    sel = _rows_where(kind == KIND_BITMAP)
+    if sel.numel():
+        shifts = torch.arange(16, dtype=torch.int32, device=drow.device)
+        flat = ((drow[sel][:, :, None] >> shifts) & 1).reshape(
+            sel.numel(), CHUNK_SIZE)
+        bit_pos[sel] = torch.searchsorted(torch.cumsum(flat, 1),
+                                          (j_in[sel] + 1)[:, None])[:, 0]
+    lo_val = torch.where(kind == KIND_ARRAY, arr_val.to(torch.int64),
+                         torch.where(kind == KIND_RUN, run_val, bit_pos))
+    val = (slab.keys[row].to(torch.int64) << CHUNK_BITS) + lo_val
+    ok = (jf >= 0) & (jf < total)
+    return torch.where(ok, val, -1).reshape(j.shape)
+
+
+# =============================================================================
+# pairwise set algebra (canonical outputs)
+# =============================================================================
+
+def _merge_keys(a: RoaringSlab, b: RoaringSlab, capacity: int):
+    return _merge_keys_many([a.keys, b.keys], capacity)
+
+
+def _intersect_keys(a: RoaringSlab, b: RoaringSlab, capacity: int):
+    """Keys present in both slabs (the only rows an AND can populate)."""
+    Cb = b.keys.shape[0]
+    pos = torch.searchsorted(b.keys.contiguous(), a.keys.contiguous())
+    hit = ((b.keys[pos.clamp(max=Cb - 1)] == a.keys)
+           & (a.keys != KEY_SENTINEL))
+    vals = torch.sort(torch.where(hit, a.keys, KEY_SENTINEL)).values
+    return _pad_keys(vals.to(torch.int32), capacity)
+
+
+def _run_merge_rows(da: torch.Tensor, db: torch.Tensor):
+    """run x run intersection in run domain over i32 rows: every output run
+    closes at an input run end covered by the other side, so the <= na+nb
+    candidates come from two searches (one per input end), deduplicated by
+    a strict tie-break and compacted by one sort — never the 2^16 domain.
+    Returns (pairs i32[M, 4096], card, n_out); a row whose ``n_out``
+    exceeds the 2048-pair capacity needs the coverage form instead."""
+    M = da.shape[0]
+    BIG = 1 << 17
+    pa, pb = da.reshape(M, MAX_RUNS, 2), db.reshape(M, MAX_RUNS, 2)
+    sa, la = pa[..., 0], pa[..., 1]
+    sb, lb = pb[..., 0], pb[..., 1]
+    va, vb = (sa + la) < CHUNK_SIZE, (sb + lb) < CHUNK_SIZE
+    ea, eb = sa + la, sb + lb
+    sa_p = torch.where(va, sa, BIG).contiguous()
+    sb_p = torch.where(vb, sb, BIG).contiguous()
+    j = torch.searchsorted(sb_p, ea.contiguous(), right=True) - 1
+    jc = j.clamp(0, MAX_RUNS - 1)
+    av = va & (j >= 0) & (torch.gather(eb, 1, jc) >= ea)
+    a_start = torch.maximum(sa, torch.gather(sb, 1, jc))
+    i = torch.searchsorted(sa_p, eb.contiguous(), right=True) - 1
+    ic = i.clamp(0, MAX_RUNS - 1)
+    bv = vb & (i >= 0) & (torch.gather(ea, 1, ic) > eb)
+    b_start = torch.maximum(sb, torch.gather(sa, 1, ic))
+    starts = torch.cat([torch.where(av, a_start, BIG),
+                        torch.where(bv, b_start, BIG)], 1)
+    ends = torch.cat([torch.where(av, ea, 0), torch.where(bv, eb, 0)], 1)
+    card = (torch.where(av, ea - a_start + 1, 0).sum(1, dtype=torch.int32)
+            + torch.where(bv, eb - b_start + 1, 0).sum(1, dtype=torch.int32))
+    n_out = (av.sum(1, dtype=torch.int32) + bv.sum(1, dtype=torch.int32))
+    order = torch.argsort(starts, dim=1, stable=True)[:, :MAX_RUNS]
+    ss = torch.gather(starts, 1, order)
+    ee = torch.gather(ends, 1, order)
+    live = torch.arange(MAX_RUNS, device=da.device)[None, :] < n_out[:, None]
+    pairs = torch.stack([torch.where(live, ss, 0xFFFF),
+                         torch.where(live, ee - ss, 0xFFFF)],
+                        dim=2).reshape(M, ROW_WORDS)
+    return pairs.to(torch.int32), card, n_out
+
+
+def _run_merge_rows_lazy(da: torch.Tensor, db: torch.Tensor,
+                         rr: torch.Tensor):
+    """The run-domain merge over just the rows classified run x run (i32
+    rows in). Returns (pairs, card, n_out, bits): rows the merge cannot
+    hold (over 2048 output runs) get their coverage AND in ``bits``."""
+    M = da.shape[0]
+    pairs = _fill((M, ROW_WORDS), 0xFFFF, da)
+    card = torch.zeros((M,), dtype=torch.int32, device=da.device)
+    n_out = torch.zeros_like(card)
+    bits = torch.zeros((M, ROW_WORDS), dtype=torch.int32, device=da.device)
+    rows = _rows_where(rr)
+    if rows.numel():
+        pairs[rows], card[rows], n_out[rows] = _run_merge_rows(da[rows],
+                                                               db[rows])
+        over = rows[n_out[rows] > MAX_RUNS]
+        if over.numel():
+            bits[over] = (_D.coverage_by_scatter(da[over])
+                          & _D.coverage_by_scatter(db[over]))
+    return pairs, card, n_out, bits
+
+
+def slab_and(a: RoaringSlab, b: RoaringSlab,
+             capacity: Optional[int] = None) -> RoaringSlab:
+    """A ∩ B over the registry's 4x4 dispatch grid: every cell but run x
+    run through the dispatch kernel (``ops.intersect_dispatch``), run x run
+    by the run-domain merge; one canonicalization. Capacity defaults to
+    ``min(C_a, C_b)``."""
+    from repro_torch.kernels.roaring import ops as _kops
+    capacity = capacity or min(a.keys.shape[0], b.keys.shape[0])
+    keys = _intersect_keys(a, b, capacity)
+    da, ca, ka = _gather_raw(a, keys)
+    db, cb, kb = _gather_raw(b, keys)
+    ra, rb = _rows_nruns(da, ka), _rows_nruns(db, kb)
+    rr = _D.route_mask("run_merge", ka, kb)
+    # run x run rows are routed around the kernel (masked empty: skipped)
+    meta = _dispatch_meta(torch.where(rr, KIND_EMPTY, ka),
+                          torch.where(rr, KIND_EMPTY, kb), ca, cb, ra, rb)
+    hits, kcard = _kops.intersect_dispatch(da, db, meta)
+    pairs_rr, card_rr, nr_rr, bits_rr = _run_merge_rows_lazy(
+        widen(da), widen(db), rr)
+    mask_b = _D.out_mask("mask_b", ka, kb)
+    mask_m = _D.out_mask("mask_a", ka, kb) | mask_b
+    src = torch.where(mask_b[:, None], db, da)
+    arr_rows = widen(_compact_rows(widen(src),
+                                   (hits == 1) & mask_m[:, None]))
+    card = torch.where(rr, card_rr, kcard)
+    overflow = rr & (nr_rr > MAX_RUNS)
+    form = torch.where(rr & ~overflow, FORM_RUNS,
+                       torch.where(_D.out_mask("bits", ka, kb) | overflow,
+                                   FORM_BITS, FORM_ARRAY))
+    bits_rows = torch.where(rr[:, None], bits_rr, widen(hits))
+    return _finalize(keys, card, form, arr_rows, bits_rows, pairs_rr, nr_rr)
+
+
+def slab_and_card(a: RoaringSlab, b: RoaringSlab) -> torch.Tensor:
+    """|A ∩ B| without a result slab: the dispatch kernel's per-row cards
+    are the whole answer (run x run rows by its coverage AND)."""
+    from repro_torch.kernels.roaring import ops as _kops
+    keys = _intersect_keys(a, b, min(a.keys.shape[0], b.keys.shape[0]))
+    da, ca, ka = _gather_raw(a, keys)
+    db, cb, kb = _gather_raw(b, keys)
+    meta = _dispatch_meta(ka, kb, ca, cb, _rows_nruns(da, ka),
+                          _rows_nruns(db, kb))
+    _, card = _kops.intersect_dispatch(da, db, meta)
+    return card.sum(dtype=torch.int64)
+
+
+def _total(s: RoaringSlab) -> torch.Tensor:
+    return s.card.sum(dtype=torch.int64)
+
+
+def slab_or_card(a: RoaringSlab, b: RoaringSlab) -> torch.Tensor:
+    """|A ∪ B| by inclusion-exclusion on the counters."""
+    return _total(a) + _total(b) - slab_and_card(a, b)
+
+
+def slab_jaccard(a: RoaringSlab, b: RoaringSlab) -> torch.Tensor:
+    """|A ∩ B| / |A ∪ B| as float32 (0 when both are empty)."""
+    inter = slab_and_card(a, b)
+    union = _total(a) + _total(b) - inter
+    return torch.where(union > 0,
+                       inter.to(torch.float32)
+                       / union.clamp(min=1).to(torch.float32),
+                       torch.zeros((), dtype=torch.float32,
+                                   device=inter.device))
+
+
+def stack_slabs(slabs) -> RoaringSlab:
+    """Stack same-capacity slabs along a new leading axis."""
+    return RoaringSlab(*(torch.stack(xs) for xs in zip(*slabs)))
+
+
+def slab_and_many(query: RoaringSlab, slabs) -> RoaringSlab:
+    """``query ∩ slab_i`` for each slab, stacked (one ``slab_and`` per
+    member: each keeps its own key intersection and canonicalization)."""
+    return stack_slabs([slab_and(query, s) for s in slabs])
+
+
+def slab_and_card_many(query: RoaringSlab, slabs) -> torch.Tensor:
+    """i64[N] of |query ∩ slab_i| (one dispatch launch per member)."""
+    return torch.stack([slab_and_card(query, s) for s in slabs])
+
+
+def _union_like(a: RoaringSlab, b: RoaringSlab, capacity: int,
+                xor: bool) -> RoaringSlab:
+    """OR / XOR: merge the key sets, one ``_or_rows`` step, canonicalize."""
+    keys = _merge_keys(a, b, capacity)
+    da, ca, ka = _gather_raw(a, keys)
+    db, cb, kb = _gather_raw(b, keys)
+    data, card, kind = _or_rows(da, ca, ka, db, cb, kb, xor=xor)
+    return _finalize_rows(keys, data, card, kind)
+
+
+def slab_or(a: RoaringSlab, b: RoaringSlab,
+            capacity: Optional[int] = None) -> RoaringSlab:
+    """A ∪ B (canonical). Capacity defaults to ``C_a + C_b``."""
+    return _union_like(a, b, capacity or (a.keys.shape[0] + b.keys.shape[0]),
+                       xor=False)
+
+
+def slab_xor(a: RoaringSlab, b: RoaringSlab,
+             capacity: Optional[int] = None) -> RoaringSlab:
+    """A ⊕ B (symmetric difference). Capacity defaults to ``C_a + C_b``."""
+    return _union_like(a, b, capacity or (a.keys.shape[0] + b.keys.shape[0]),
+                       xor=True)
+
+
+def slab_andnot(a: RoaringSlab, b: RoaringSlab,
+                capacity: Optional[int] = None) -> RoaringSlab:
+    """A \\ B: array-A rows probe B in place, the others take the bitmap
+    domain. Capacity defaults to ``C_a``."""
+    keys = _pad_keys(a.keys, capacity or a.keys.shape[0])
+    da, ca, ka = _gather_raw(a, keys)
+    db, cb, kb = _gather_raw(b, keys)
+    data, card, kind = _andnot_rows(da, ca, ka, db, cb, kb)
+    return _finalize_rows(keys, data, card, kind)
+
+
+def union_many_slabs(slabs, capacity: int, device=None) -> RoaringSlab:
+    """Algorithm 4: merge the key sets once, gather every slab's rows
+    key-aligned in native form, reduce in ceil(log2 N) ``_or_rows`` levels
+    with deferred cardinality, recount once and canonicalize once at the
+    root. No slabs gives ``empty(capacity)`` on ``device``."""
+    if not slabs:
+        return empty(capacity, device)
+    keys = _merge_keys_many([s.keys for s in slabs], capacity)
+    gathered = [_gather_raw(s, keys) for s in slabs]
+    data, card, kind = _tree_reduce_rows(
+        torch.stack([g[0] for g in gathered]),
+        torch.stack([g[1] for g in gathered]),
+        torch.stack([g[2] for g in gathered]), _or_rows_deferred)
+    card = _recount_bitmap_rows(data, card, kind)
+    return _finalize_rows(keys, data, card, kind)
+
+
+# =============================================================================
+# the pre-dispatch bitmap-domain path (A/B baseline and cross-check)
+# =============================================================================
+
+def _gather_rows(s: RoaringSlab, keys: torch.Tensor):
+    """Bitmap-domain rows of ``s`` aligned to ``keys`` (zeros when
+    absent), and the presence mask."""
+    C = s.keys.shape[0]
+    pos = torch.searchsorted(s.keys.contiguous(), keys.contiguous())
+    pos_c = pos.clamp(max=C - 1)
+    present = (s.keys[pos_c] == keys) & (keys != KEY_SENTINEL)
+    bits = _lift_rows(s.data[pos_c], s.card[pos_c], s.kind[pos_c])
+    return bits * present[:, None].to(torch.int32), present
+
+
+def _binary_bits_op(a, b, word_op, capacity: int,
+                    intersection: bool) -> RoaringSlab:
+    """Lift every row to the 2^16-bit domain, apply the word op and
+    canonicalize array / bitmap only (no run outputs): the full per-row
+    bitmap-domain cost whatever the kinds."""
+    keys = _merge_keys(a, b, capacity)
+    bits_a, pa = _gather_rows(a, keys)
+    bits_b, pb = _gather_rows(b, keys)
+    bits = word_op(bits_a, bits_b) & 0xFFFF
+    card = _row_popcount(bits)
+    arr = torch.where(_slots(bits.device)[None, :] < card[:, None],
+                      row_bits_to_array(bits), 0xFFFF)
+    is_bitmap = card > ARRAY_MAX
+    data = torch.where(is_bitmap[:, None], bits, arr)
+    kind = torch.where(card == 0, KIND_EMPTY,
+                       torch.where(is_bitmap, KIND_BITMAP, KIND_ARRAY))
+    live = card > 0
+    if intersection:
+        live = live & pa & pb
+        card = torch.where(live, card, 0)
+        kind = torch.where(live, kind, KIND_EMPTY)
+    keys = torch.where(live, keys, KEY_SENTINEL).to(torch.int32)
+    order = torch.argsort(keys, stable=True)
+    return RoaringSlab(keys=keys[order], card=card[order].to(torch.int32),
+                       kind=kind[order].to(torch.int32),
+                       data=narrow(data[order]))
+
+
+def slab_and_bitmap_domain(a: RoaringSlab, b: RoaringSlab,
+                           capacity: Optional[int] = None) -> RoaringSlab:
+    """A ∩ B through the bitmap-domain path (benchmark baseline)."""
+    return _binary_bits_op(
+        a, b, torch.bitwise_and,
+        capacity or min(a.keys.shape[0], b.keys.shape[0]) * 2,
+        intersection=True)
+
+
+def slab_or_bitmap_domain(a: RoaringSlab, b: RoaringSlab,
+                          capacity: Optional[int] = None) -> RoaringSlab:
+    """A ∪ B through the bitmap-domain path (benchmark baseline)."""
+    return _binary_bits_op(
+        a, b, torch.bitwise_or,
+        capacity or (a.keys.shape[0] + b.keys.shape[0]), intersection=False)

@@ -1,10 +1,15 @@
 """``repro_torch.index`` — the wide-query executor over stacked slabs."""
 
-from repro_torch.index.engine import (And, AndNot, Expr, Leaf, Or, SlabLeaf,
-                                      and_, andnot, batched_and_card,
+from repro_torch.index.engine import (And, AndNot, CompiledQuery, Expr, Leaf,
+                                      Or, SlabLeaf, and_, andnot,
+                                      batched_and_card, compile_query,
                                       execute, execute_card, launch_model,
-                                      leaf, or_, topk_by_card)
+                                      leaf, or_, topk_by_card,
+                                      union_many_batched, wide_intersect,
+                                      wide_union)
 
 __all__ = ["Expr", "Leaf", "SlabLeaf", "And", "Or", "AndNot", "leaf",
-           "and_", "or_", "andnot", "execute", "execute_card",
-           "batched_and_card", "topk_by_card", "launch_model"]
+           "and_", "or_", "andnot", "CompiledQuery", "compile_query",
+           "execute", "execute_card", "wide_union",
+           "wide_intersect", "batched_and_card", "topk_by_card",
+           "union_many_batched", "launch_model"]

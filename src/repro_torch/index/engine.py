@@ -39,7 +39,9 @@ from repro_torch.runtime.fault_tolerance import InjectedFault
 __all__ = [
     "Expr", "Leaf", "SlabLeaf", "And", "Or", "AndNot",
     "leaf", "and_", "or_", "andnot",
-    "execute", "execute_card", "batched_and_card", "topk_by_card",
+    "CompiledQuery", "compile_query",
+    "execute", "execute_card", "wide_union", "wide_intersect",
+    "batched_and_card", "topk_by_card", "union_many_batched",
     "launch_model",
 ]
 
@@ -282,12 +284,18 @@ def launch_model(expr: Expr, *, stacked: bool = True) -> dict:
     }
 
 
-def _fused_compile(stack, keys, expr: Expr):
-    """Lower an ``Expr`` to the fused evaluator's inputs: the plan, the
-    operand rows int16[N, C, 4096] and the packed lift meta. When the
-    distinct leaves are exactly the stack's members in order (what the
-    search service builds), the stack's tensors are used without a copy."""
+def _fused_lower(expr: Expr):
+    """Lower an ``Expr`` for the fused evaluator: the ``FusedPlan`` and the
+    distinct operand expressions in the plan's operand order."""
     tree, order = _lower_tree(expr)
+    return _fused.plan_tape(tree), tuple(order)
+
+
+def _fused_gather(stack, keys, order):
+    """The fused evaluator's operand rows int16[N, C, 4096] and packed lift
+    meta for the lowered operands ``order``. When the operands are exactly
+    the stack's members in order (what the search service builds), the
+    stack's tensors are used without a copy."""
     if stack is not None and all(isinstance(e, Leaf) for e in order):
         idx = [e.i for e in order]
         for i in idx:
@@ -313,14 +321,16 @@ def _fused_compile(stack, keys, expr: Expr):
         card = torch.stack([s[1] for s in states])
         kind = torch.stack([s[2] for s in states])
         nruns = torch.stack([s[3] for s in states])
-    meta = _fused.pack_lift_meta(kind, card, nruns)
-    return _fused.plan_tape(tree), data.contiguous(), meta
+    return data.contiguous(), _fused.pack_lift_meta(kind, card, nruns)
 
 
-def _fused_eval(stack, keys, expr: Expr):
+def _fused_eval(stack, keys, expr: Expr, lowered=None):
     """Row-state result of the fused path: one ``ops.fused_tree`` launch,
-    root rows in bitmap domain (kind from the fused per-column card)."""
-    plan, data, meta = _fused_compile(stack, keys, expr)
+    root rows in bitmap domain (kind from the fused per-column card).
+    ``lowered`` is ``_fused_lower``'s output when compiled ahead; the
+    operand rows are gathered on every call."""
+    plan, order = lowered or _fused_lower(expr)
+    data, meta = _fused_gather(stack, keys, order)
     bits, card = _kops.fused_tree(data, meta, plan)
     live = card > 0
     kind = torch.where(live, tr.KIND_BITMAP, tr.KIND_EMPTY).to(torch.int32)
@@ -328,6 +338,28 @@ def _fused_eval(stack, keys, expr: Expr):
     # per-op pipeline's convention for dead payloads
     bits = torch.where(live[:, None], bits, torch.full_like(bits, -1))
     return bits, card, kind
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class CompiledQuery:
+    """An expression lowered once for repeated runs over one stack: the
+    shared key row and, for the fused path, the ``FusedPlan`` with its
+    operand order. It holds no operand rows: each run gathers them from the
+    stack, so a kept plan costs no device memory beyond the key row. The
+    stack must not change while the compiled query is in use."""
+
+    expr: Expr
+    keys: torch.Tensor
+    fused_lowered: Optional[tuple]
+
+
+def compile_query(stack: Optional[RoaringSlab], expr: Expr,
+                  capacity: Optional[int] = None, *,
+                  fused: bool = False) -> CompiledQuery:
+    """Lower ``expr`` over ``stack`` for ``execute(..., compiled=)`` /
+    ``execute_card(..., compiled=)``."""
+    return CompiledQuery(expr, _shared_keys(stack, expr, capacity),
+                         _fused_lower(expr) if fused else None)
 
 
 # =============================================================================
@@ -394,10 +426,19 @@ def _run_query(fused_fn, per_op_fn, fused: bool, backend: Optional[str],
     return _run_ladder(rungs, max_retries, backoff_s)
 
 
+def _prepare(stack, expr, capacity, compiled: Optional[CompiledQuery]):
+    """(stack, expr, keys, fused lowering or None) of one query."""
+    if compiled is not None:
+        return stack, compiled.expr, compiled.keys, compiled.fused_lowered
+    stack, expr = _normalize(stack, expr)
+    return stack, expr, _shared_keys(stack, expr, capacity), None
+
+
 def execute(stack: Optional[RoaringSlab], expr: Optional[Expr] = None,
             capacity: Optional[int] = None, *, fused: bool = False,
             backend: Optional[str] = None, max_retries: int = 1,
-            backoff_s: float = 0.0) -> RoaringSlab:
+            backoff_s: float = 0.0,
+            compiled: Optional[CompiledQuery] = None) -> RoaringSlab:
     """Evaluate ``expr`` over the stacked slab -> canonical ``RoaringSlab``.
 
     One deferred best-of-three canonicalization at the root; output is
@@ -405,16 +446,17 @@ def execute(stack: Optional[RoaringSlab], expr: Optional[Expr] = None,
     when every leaf is a ``leaf(slab)``. ``fused=True`` evaluates the whole
     tree in one kernel launch, with the per-op path as the next rung.
     ``backend`` is ``"cuda"`` / ``"torch"`` / None (the data's own).
+    ``compiled`` (from ``compile_query``) replaces ``expr`` and skips the
+    lowering.
     """
-    stack, expr = _normalize(stack, expr)
-    keys = _shared_keys(stack, expr, capacity)
+    stack, expr, keys, lowered = _prepare(stack, expr, capacity, compiled)
 
     def per_op() -> RoaringSlab:
         data, card, kind = _eval(stack, keys, expr)
         return _wrap(tr._finalize_rows(keys, data, card, kind))
 
     def fused_attempt() -> RoaringSlab:
-        data, card, kind = _fused_eval(stack, keys, expr)
+        data, card, kind = _fused_eval(stack, keys, expr, lowered)
         return _wrap(tr._finalize_rows(keys, data, card, kind))
 
     with obs.span("index.execute", fused=fused, backend=backend or "auto"):
@@ -431,19 +473,19 @@ def execute_card(stack: Optional[RoaringSlab],
                  expr: Optional[Expr] = None,
                  capacity: Optional[int] = None, *, fused: bool = False,
                  backend: Optional[str] = None, max_retries: int = 1,
-                 backoff_s: float = 0.0) -> torch.Tensor:
+                 backoff_s: float = 0.0,
+                 compiled: Optional[CompiledQuery] = None) -> torch.Tensor:
     """|expr| without materializing a result slab (the root's counter sum;
     ``fused=True`` takes it from the fused kernel's root popcount). Runs
     the same degradation ladder as ``execute``."""
-    stack, expr = _normalize(stack, expr)
-    keys = _shared_keys(stack, expr, capacity)
+    stack, expr, keys, lowered = _prepare(stack, expr, capacity, compiled)
 
     def per_op() -> torch.Tensor:
         _, card, _ = _eval(stack, keys, expr)
         return card.sum(dtype=torch.int64)
 
     def fused_attempt() -> torch.Tensor:
-        _, card, _ = _fused_eval(stack, keys, expr)
+        _, card, _ = _fused_eval(stack, keys, expr, lowered)
         return card.sum(dtype=torch.int64)
 
     with obs.span("index.execute_card", fused=fused,
@@ -452,6 +494,38 @@ def execute_card(stack: Optional[RoaringSlab],
             obs.record_kinds("index.input_kinds", stack.kinds)
         return _run_query(fused_attempt, per_op, fused, backend, max_retries,
                           backoff_s, keys.device)
+
+
+def wide_union(stack: RoaringSlab) -> RoaringSlab:
+    """Union of all N stacked slabs (Algorithm 4): log-depth tree reduction,
+    kind-dispatching at every level, deferred cardinality (one recount at
+    the root), single deferred canonicalization."""
+    data, card, kind = tr._tree_reduce_rows(stack.payload, stack.cards,
+                                            stack.kinds, tr._or_rows_deferred)
+    card = tr._recount_bitmap_rows(data, card, kind)
+    return _wrap(tr._finalize_rows(stack.keys[0], data, card, kind))
+
+
+def wide_intersect(stack: RoaringSlab) -> RoaringSlab:
+    """Intersection of all N stacked slabs: log-depth tree of dispatch
+    steps (one ``intersect_dispatch`` launch per level), single deferred
+    canonicalization."""
+    data, card, kind = tr._tree_reduce_rows(stack.payload, stack.cards,
+                                            stack.kinds, tr._and_rows)
+    return _wrap(tr._finalize_rows(stack.keys[0], data, card, kind))
+
+
+def union_many_batched(slabs, capacity: int) -> RoaringSlab:
+    """Deprecated: use ``repro_torch.roaring.union_all`` (the same
+    reduction, per member of equal-batch stacked slabs)."""
+    import warnings
+
+    from repro_torch.roaring.slab import union_all
+    warnings.warn(
+        "repro_torch.index.union_many_batched is deprecated; use "
+        "repro_torch.roaring.union_all(slabs, capacity=...)",
+        DeprecationWarning, stacklevel=2)
+    return union_all(slabs, capacity=capacity)
 
 
 # =============================================================================

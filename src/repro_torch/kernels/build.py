@@ -26,6 +26,7 @@ __all__ = ["build", "library", "raise_on", "NVCC_FLAGS", "SOURCES"]
 _ROOT = Path(__file__).resolve().parent
 _BUILD = _ROOT / "_build"
 SOURCES = ("roaring/csrc/intersect_dispatch.cu", "roaring/csrc/fused_eval.cu",
+           "roaring/csrc/container_ops.cu",
            "sparse_attn/csrc/paged_decode.cu",
            "sparse_attn/csrc/sparse_flash.cu")
 _HEADERS = ("roaring/csrc/roaring_common.cuh",)

@@ -22,7 +22,8 @@ from . import fused as F
 
 __all__ = ["and_table_source", "launch_counts",
            "reset_launch_counts", "intersect_dispatch_cuda",
-           "fused_eval_cuda", "fused_max_smem_slots"]
+           "fused_eval_cuda", "fused_max_smem_slots", "container_op_cuda",
+           "array_intersect_cuda", "CONTAINER_OPS"]
 
 # row-kernel ids of the CUDA cell switch (RK_* in and_table.inc)
 _KERNEL_IDS = {"gallop": 1, "probe": 2, "word_and": 3, "run_gallop": 4,
@@ -30,7 +31,11 @@ _KERNEL_IDS = {"gallop": 1, "probe": 2, "word_and": 3, "run_gallop": 4,
 
 launch_counts: Dict[str, int] = {"intersect_dispatch": 0,
                                  "intersect_dispatch_stacked": 0,
-                                 "fused_tree": 0}
+                                 "fused_tree": 0, "container_op": 0,
+                                 "array_intersect": 0}
+
+# word ops of the container_op kernel, by their id in container_ops.cu
+CONTAINER_OPS = {"and": 0, "or": 1, "xor": 2, "andnot": 3}
 
 
 def reset_launch_counts() -> None:
@@ -78,6 +83,12 @@ def _lib() -> ctypes.CDLL:
         lib.roaring_fused_eval.restype = ctypes.c_int
         lib.roaring_fused_max_smem_slots.argtypes = []
         lib.roaring_fused_max_smem_slots.restype = ctypes.c_int
+        lib.roaring_container_op.argtypes = [
+            _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P]
+        lib.roaring_container_op.restype = ctypes.c_int
+        lib.roaring_array_intersect.argtypes = [
+            _P, _P, _P, _P, _P, ctypes.c_longlong, _P]
+        lib.roaring_array_intersect.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
@@ -172,3 +183,53 @@ def fused_eval_cuda(ops: torch.Tensor, meta: torch.Tensor,
     _build.raise_on(err, "fused_tree")
     launch_counts["fused_tree"] += 1
     return bits, card
+
+
+def _check_pair_rows(a: torch.Tensor, b: torch.Tensor, tags: torch.Tensor,
+                     tag_name: str) -> int:
+    _check(a, torch.int16, "a")
+    _check(b, torch.int16, "b")
+    _check(tags, torch.int32, tag_name)
+    R = a.shape[0]
+    if (a.dim() != 2 or a.shape[1] != D.ROW_WORDS or b.shape != a.shape
+            or tags.numel() != 2 * R):
+        raise ValueError(f"bad shapes: a {tuple(a.shape)}, b "
+                         f"{tuple(b.shape)}, {tag_name} {tuple(tags.shape)}")
+    return R
+
+
+def container_op_cuda(a: torch.Tensor, b: torch.Tensor, kinds: torch.Tensor,
+                      op: str):
+    """Launch the word-op kernel over ``R = a.shape[0]`` key-aligned pairs of
+    bitmap-domain rows: a, b int16[R, 4096]; kinds i32[2R] interleaved
+    (kind_a, kind_b). Returns ``(out int16[R, 4096], card i32[R])``; a
+    both-EMPTY pair gives zeros and card 0 without reading its payload."""
+    if op not in CONTAINER_OPS:
+        raise ValueError(f"unknown container op {op!r} (want one of "
+                         f"{sorted(CONTAINER_OPS)})")
+    R = _check_pair_rows(a, b, kinds, "kinds")
+    out = torch.empty((R, D.ROW_WORDS), dtype=torch.int16, device=a.device)
+    card = torch.empty((R,), dtype=torch.int32, device=a.device)
+    err = _lib().roaring_container_op(_ptr(a), _ptr(b), _ptr(kinds),
+                                      _ptr(out), _ptr(card), R,
+                                      CONTAINER_OPS[op], _stream(a))
+    _build.raise_on(err, "container_op")
+    launch_counts["container_op"] += 1
+    return out, card
+
+
+def array_intersect_cuda(a: torch.Tensor, b: torch.Tensor,
+                         cards: torch.Tensor):
+    """Launch the packed-array intersection kernel over ``R = a.shape[0]``
+    pairs: a, b int16[R, 4096] packed sorted arrays (0xFFFF padded); cards
+    i32[2R] interleaved (card_a, card_b), each in [0, 4096]. Returns
+    ``(hits int16[R, 4096] 0/1 over A's slots, count i32[R])``."""
+    R = _check_pair_rows(a, b, cards, "cards")
+    hits = torch.empty((R, D.ROW_WORDS), dtype=torch.int16, device=a.device)
+    count = torch.empty((R,), dtype=torch.int32, device=a.device)
+    err = _lib().roaring_array_intersect(_ptr(a), _ptr(b), _ptr(cards),
+                                         _ptr(hits), _ptr(count), R,
+                                         _stream(a))
+    _build.raise_on(err, "array_intersect")
+    launch_counts["array_intersect"] += 1
+    return hits, count

@@ -34,7 +34,8 @@ from . import ref as _ref
 __all__ = ["LaunchEvent", "add_launch_hook", "remove_launch_hook",
            "backend_scope", "current_backend", "set_fault_hook",
            "intersect_dispatch", "intersect_dispatch_stacked",
-           "stacked_and_card", "fused_tree", "BACKENDS"]
+           "stacked_and_card", "fused_tree", "container_op",
+           "array_intersect", "BACKENDS"]
 
 BACKENDS = ("cuda", "torch")
 
@@ -119,6 +120,38 @@ def _resolve(entry: str, t: torch.Tensor) -> str:
     if _FAULT_HOOK is not None:
         _FAULT_HOOK(backend)
     return backend
+
+
+def container_op(a_bits: torch.Tensor, b_bits: torch.Tensor,
+                 kinds: torch.Tensor, op: str = "or"):
+    """Batched word op (``"and"`` / ``"or"`` / ``"xor"`` / ``"andnot"``) +
+    popcount over key-aligned bitmap-domain rows.
+
+    a_bits, b_bits: int16[C, 4096]; kinds: i32[2C] interleaved (kind_a,
+    kind_b). Returns (out int16[C, 4096], card i32[C]); both-EMPTY pairs
+    give zeros and card 0.
+    """
+    _resolve("container_op", a_bits)
+    if a_bits.is_cuda:
+        return _k.container_op_cuda(a_bits.contiguous(), b_bits.contiguous(),
+                                    kinds.to(torch.int32).contiguous(), op)
+    return _ref.container_op_ref(a_bits, b_bits, kinds, op)
+
+
+def array_intersect(a_arr: torch.Tensor, b_arr: torch.Tensor,
+                    cards: torch.Tensor):
+    """Batched packed-array intersection (each of A's values searches B).
+
+    a_arr, b_arr: int16[C, 4096] packed sorted arrays, 0xFFFF padded;
+    cards: i32[2C] interleaved (card_a, card_b). Returns (hits int16[C,
+    4096] — 1 where a value of A is also in B — and count i32[C]).
+    """
+    _resolve("array_intersect", a_arr)
+    if a_arr.is_cuda:
+        return _k.array_intersect_cuda(a_arr.contiguous(),
+                                       b_arr.contiguous(),
+                                       cards.to(torch.int32).contiguous())
+    return _ref.array_intersect_ref(a_arr, b_arr, cards)
 
 
 def intersect_dispatch(a_data: torch.Tensor, b_data: torch.Tensor,

@@ -24,9 +24,9 @@ non-run container is a bitmap iff ``cardinality > 4096``, which is precisely
 the slab/oracle canonical rule (array takes the 4096 tie), so canonical
 bitmaps — every set-algebra output — serialize and deserialize to identical
 kinds, payloads, and bytes. The codec is host-side (bytes are not a device
-type); the device entry point is ``RoaringSlab.serialize``. This is the
-port's own copy of the reference package's codec: the two must produce the
-same bytes.
+type); the device entry points are ``RoaringSlab.serialize`` /
+``RoaringSlab.deserialize``. This is the port's own copy of the reference
+package's codec: the two must produce the same bytes.
 
 Threat model: ``deserialize`` treats its input as *untrusted* (a cookie from
 a hostile client, a corrupted object-store blob). Every read is
@@ -214,12 +214,16 @@ class RoaringFormatSpec:
     # -- hardened decode ------------------------------------------------------
     @classmethod
     def deserialize(cls, data: bytes, *,
-                    limits: Optional[DecodeLimits] = None) -> pr.RoaringBitmap:
+                    limits: Optional[DecodeLimits] = None,
+                    check: bool = False) -> pr.RoaringBitmap:
         """Untrusted portable byte stream -> ``RoaringBitmap``.
 
         Structural validation always runs (bounds, offsets, key order, run
-        pairs, cardinality-vs-payload agreement). ``limits`` defaults to
-        ``DecodeLimits()``.
+        pairs, cardinality-vs-payload agreement); ``check=True`` additionally
+        runs the full invariant auditor (``repro_torch.roaring.validate``)
+        on the result and raises ``InvariantViolation`` (a
+        ``RoaringFormatError``) if it reports anything. ``limits`` defaults
+        to ``DecodeLimits()``.
         """
         lim = limits if limits is not None else _DEFAULT_LIMITS
         ln = len(data)
@@ -428,6 +432,9 @@ class RoaringFormatSpec:
                     raise PayloadError(
                         f"bitmap popcount {got} != declared cardinality "
                         f"{card_list[i]}", offset=payload_pos, container=i)
+        if check:
+            from repro_torch.roaring import validate as _v
+            _v.audit_bitmap(rb).raise_on_violation()
         return rb
 
     @staticmethod

@@ -83,6 +83,24 @@ class PostingIndex:
             raise ValueError(f"C = {stack.C} does not cover {n_docs} docs")
         return cls(terms, stack, n_docs)
 
+    @classmethod
+    def from_store(cls, store, column: str, *, device=None) -> "PostingIndex":
+        """Adopt a ``BitmapStore`` equality column as the vocabulary: each
+        value ``v`` becomes term ``"{column}={v}"`` whose posting is the
+        column's slot bitmap (a host round trip through ``slot_bitmap``;
+        the store's slabs are not aliased). ``device`` defaults to the
+        store's."""
+        from repro_torch.store.store import EqColumn
+        col = store.column(column)
+        if not isinstance(col, EqColumn):
+            raise TypeError(f"column {column!r} is not an EqColumn")
+        postings = {
+            f"{column}={v}": store.slot_bitmap(col.base_slot + i).to_array()
+            for i, v in enumerate(col.values)}
+        return cls.from_postings(
+            postings, store.n_rows,
+            device=store.device if device is None else device)
+
     # -- lookups --------------------------------------------------------------
     @property
     def n_terms(self) -> int:

@@ -60,7 +60,7 @@ class ServeEngine:
         self.max_batch = max_batch
         self.page_size = page_size
         self.max_pages = max_pages_per_seq
-        self.table = RoaringPageTable(n_pages, page_size)
+        self.table = RoaringPageTable(n_pages, page_size, device=self.device)
         self.pools = T.init_paged_caches(cfg, n_pages, page_size,
                                          device=self.device)
         self.queue: List[Request] = []

@@ -9,11 +9,11 @@ bookkeeping is the paper's machinery:
     bitmap is the allocator;
   * per-sequence page lists stay *ordered* (logical order = list order);
   * ``gather_lists`` packs the page ids into the arrays the paged decode
-    kernel reads.
-
-The reference's device-side views of the table (``free_slab``,
-``used_slab``, ``rebuild_free_slab``, ``shared_pages*``) and its ``audit``
-wait for the slab operators and ``validate.py`` (ROADMAP queue 1).
+    kernel reads;
+  * device-side views (``free_slab``, ``used_slab``, ``rebuild_free_slab``,
+    ``shared_pages*``) put the page sets on the table's device as
+    ``repro_torch.roaring`` slabs, and ``audit`` checks the allocator with
+    ``repro_torch.roaring.validate``.
 """
 
 from __future__ import annotations
@@ -26,11 +26,13 @@ from repro_torch.core.py_roaring import RoaringBitmap, union_many
 
 
 class RoaringPageTable:
-    """Host-side page allocator + per-sequence page lists."""
+    """Host-side page allocator + per-sequence page lists. The device views
+    build their slabs on ``device`` (default: the card)."""
 
-    def __init__(self, n_pages: int, page_size: int):
+    def __init__(self, n_pages: int, page_size: int, device=None):
         self.n_pages = n_pages
         self.page_size = page_size
+        self.device = device
         # the free pool starts as one maximal run [0, n_pages) — a run
         # container, not a materialized page-id array
         self.free = RoaringBitmap.from_ranges([(0, n_pages)])
@@ -70,6 +72,94 @@ class RoaringPageTable:
     def utilization(self) -> float:
         return 1.0 - len(self.free) / self.n_pages
 
+    def audit(self):
+        """Structural audit of the allocator (``roaring.validate``): the
+        free/used partition exactly covers [0, n_pages) with no leaked,
+        double-allocated, or duplicated pages, and per-sequence page counts
+        cover ``seq_len``. Returns the machine-readable ``AuditReport``."""
+        from repro_torch.roaring import validate as _v
+        return _v.audit_page_table(self)
+
+    # -- device-side views (repro_torch.roaring object API) -------------------
+    def _page_capacity(self) -> int:
+        from repro_torch import roaring
+        return max(1, (self.n_pages + roaring.CHUNK_SIZE - 1)
+                   // roaring.CHUNK_SIZE)
+
+    def free_slab(self):
+        """Free-page set as a device ``roaring.RoaringSlab`` — the free
+        pool's run containers land as run rows directly."""
+        from repro_torch.roaring import RoaringSlab
+        return RoaringSlab.from_roaring(self.free, self._page_capacity(),
+                                        device=self.device)
+
+    def _seq_slab(self, pages):
+        """One page list as a device slab (empty list -> empty slab)."""
+        from repro_torch.roaring import RoaringSlab
+        cap = self._page_capacity()
+        if not pages:
+            return RoaringSlab.empty(cap, device=self.device)
+        return RoaringSlab.from_values(np.asarray(pages, np.int64), cap,
+                                       len(pages), device=self.device)
+
+    def _seq_slabs(self):
+        """Per-sequence page sets as device slabs (skips empty sequences)."""
+        return [self._seq_slab(p) for p in self.seq_pages.values() if p]
+
+    def used_slab(self):
+        """In-use pages as a device ``RoaringSlab`` — Alg. 4 as the engine's
+        log-depth tree reduction over per-sequence page slabs, one deferred
+        canonicalization (contiguous allocations union into run rows)."""
+        from repro_torch import roaring
+        cap = self._page_capacity()
+        slabs = self._seq_slabs()
+        if not slabs:
+            return roaring.RoaringSlab.empty(cap, device=self.device)
+        return roaring.union_all(slabs, capacity=cap)
+
+    def rebuild_free_slab(self):
+        """Recompute the free pool from scratch on the device: ``all_pages
+        ANDNOT (∪ per-seq pages)`` through the expression executor, the
+        operands attached as ``leaf(slab)`` nodes — a cross-check (and
+        recovery rebuild) of the incrementally maintained host ``free``
+        pool. Canonical output: a fresh pool comes back as run rows."""
+        from repro_torch import index
+        from repro_torch.roaring import RoaringSlab
+        cap = self._page_capacity()
+        full = RoaringSlab.from_ranges([(0, self.n_pages)], cap,
+                                       device=self.device)
+        slabs = self._seq_slabs()
+        if not slabs:
+            return full.run_optimize()
+        expr = index.andnot(
+            index.leaf(full),
+            index.or_(*[index.leaf(s) for s in slabs]))
+        return index.execute(expr, capacity=cap)
+
+    def shared_pages_many(self, seq_id: int, others: List[int]) -> np.ndarray:
+        """|pages(seq_id) ∩ pages(o)| for many candidate sequences in ONE
+        stacked dispatch launch (i32[len(others)])."""
+        from repro_torch import index, roaring
+        if not others:
+            return np.zeros((0,), np.int32)
+        stack = roaring.stack(
+            [self._seq_slab(self.seq_pages.get(o, [])) for o in others],
+            capacity=self._page_capacity())
+        return index.batched_and_card(
+            stack, self._seq_slab(self.seq_pages.get(seq_id, []))
+        ).cpu().numpy()
+
+    def shared_pages(self, seq_a: int, seq_b: int) -> int:
+        """# physical pages two sequences share, by the cardinality-only
+        dispatch path (no result set materialized)."""
+        from repro_torch.roaring import RoaringSlab
+        cap = self._page_capacity()
+        sa, sb = (RoaringSlab.from_values(
+            np.asarray(self.seq_pages.get(s, []), np.int64), cap,
+            self.n_pages, device=self.device) for s in (seq_a, seq_b))
+        return int(sa.and_card(sb))
+
+    # -- kernel metadata -------------------------------------------------------
     def gather_lists(self, seq_ids: List[int], max_pages: int):
         """(page_idx i32[B, max_pages], counts i32[B], lengths i32[B])."""
         B = len(seq_ids)

@@ -9,14 +9,14 @@ host-side mask compiler, running the actual reproduction code.
 
 ``compile_mask`` extracts every row's packed block list (Algorithm 2) into
 the (kv_idx, counts) arrays the block-sparse flash kernel walks
-(``kernels/sparse_attn/csrc/sparse_flash.cu``). For a 500k-token sequence at block 128 there are 4096 block rows;
-each row's set lives in exactly one Roaring container — arrays when sparse,
-bitmap containers when a row attends broadly.
+(``kernels/sparse_attn/csrc/sparse_flash.cu``). For a 500k-token sequence
+at block 128 there are 4096 block rows; each row's set lives in exactly one
+Roaring container — arrays when sparse, bitmap containers when a row
+attends broadly.
 
-The device-side mask algebra of the reference (``union_many(device=True)``,
-``rows_to_slabs``, ``mask_overlap_cards``, ``mask_jaccard``) needs the
-slab operators and ``union_all``, which are not ported yet (ROADMAP queue 1,
-item 4); those raise ``NotImplementedError``.
+The device-side mask algebra (``union_many(device=True)``,
+``rows_to_slabs``, ``mask_overlap_cards``, ``mask_jaccard``) runs the slab
+engine of ``repro_torch.roaring`` on the card (or on ``device="cpu"``).
 """
 
 from __future__ import annotations
@@ -90,20 +90,33 @@ class MaskBuilder:
         return MaskBuilder([a | b for a, b in zip(self.rows, other.rows)])
 
     def union_many(self, others: Sequence["MaskBuilder"],
-                   device: bool = True,
+                   device=True,
                    capacity: Optional[int] = None) -> "MaskBuilder":
         """Alg. 4 union across many patterns, row-wise.
 
-        ``device=False`` (or no ``others``) is the host heap union. The
-        reference's default routes through its batched slab engine
-        (``roaring.union_all``), which is not ported yet: ``device=True``
-        with others raises ``NotImplementedError``.
+        ``device=False`` (or no ``others``) is the host heap union. Any
+        other ``device`` routes through the batched slab engine: every
+        builder's rows stack into one ``[R, capacity]`` slab on the card
+        (``device=True``) or on the device named (``device="cpu"``), and
+        ``roaring.union_all`` reduces them, one tree reduction per mask
+        row; the two paths are bit-identical.
         """
         if not device or not others:
             return MaskBuilder([
                 union_many([self.rows[i]] + [o.rows[i] for o in others])
                 for i in range(len(self.rows))])
-        _device_algebra("union_many(device=True)")
+        from repro_torch import roaring
+
+        if capacity is None:
+            capacity = 1 + max(
+                (r.keys[-1] for b in (self, *others) for r in b.rows
+                 if r.keys), default=0)
+        on = None if device is True else device
+        stacks = [rows_to_slabs(b.rows, capacity, device=on)
+                  for b in (self, *others)]
+        merged = roaring.union_all(stacks, capacity=capacity)
+        return MaskBuilder([merged[r].to_roaring()
+                            for r in range(len(self.rows))])
 
     def intersect(self, other: "MaskBuilder") -> "MaskBuilder":
         return MaskBuilder([a & b for a, b in zip(self.rows, other.rows)])
@@ -145,30 +158,41 @@ def mask_density(kv_idx: np.ndarray, counts: np.ndarray) -> float:
 
 
 # =============================================================================
-# device-side mask algebra (needs the slab operators: ROADMAP queue 1)
+# device-side mask algebra (the slab engine)
 # =============================================================================
 
-def _device_algebra(what: str):
-    raise NotImplementedError(
-        f"{what} needs the slab operators and union_all of the object API, "
-        "which are not ported yet; see ROADMAP.md queue 1, item 4")
+def rows_to_slabs(rows: Sequence[RoaringBitmap], capacity: int = 2, *,
+                  device=None):
+    """Stack mask rows into a batched ``roaring.RoaringSlab`` on ``device``
+    (default: the card; leading axis = mask row).
 
+    Block-id universes are small, so each row is one container; the
+    kind-preserving bridge keeps window / causal / doc rows as run rows.
+    Rows are stacked raw (``align=False``): elementwise-batched ops
+    re-align per row.
+    """
+    from repro_torch import roaring
 
-def rows_to_slabs(rows: Sequence[RoaringBitmap], capacity: int = 2):
-    """Stack mask rows into a batched slab (not ported yet)."""
-    _device_algebra("rows_to_slabs")
+    return roaring.stack(
+        [roaring.RoaringSlab.from_roaring(r, capacity, device=device)
+         for r in rows], align=False)
 
 
 def mask_overlap_cards(m1: "MaskBuilder", m2: "MaskBuilder",
-                       capacity: int = 2) -> np.ndarray:
-    """Per-row |row1 & row2| on the device (not ported yet)."""
-    _device_algebra("mask_overlap_cards")
+                       capacity: int = 2, *, device=None) -> np.ndarray:
+    """Per-row |row1 ∩ row2| without materializing intersection masks — the
+    cardinality-only dispatch path, batched over rows (i32[R])."""
+    s1 = rows_to_slabs(m1.rows, capacity, device=device)
+    s2 = rows_to_slabs(m2.rows, capacity, device=device)
+    return s1.and_card(s2).cpu().numpy().astype(np.int32)
 
 
 def mask_jaccard(m1: "MaskBuilder", m2: "MaskBuilder",
-                 capacity: int = 2) -> np.ndarray:
-    """Per-row Jaccard similarity on the device (not ported yet)."""
-    _device_algebra("mask_jaccard")
+                 capacity: int = 2, *, device=None) -> np.ndarray:
+    """Per-row Jaccard similarity of two mask patterns (f32[R])."""
+    s1 = rows_to_slabs(m1.rows, capacity, device=device)
+    s2 = rows_to_slabs(m2.rows, capacity, device=device)
+    return s1.jaccard(s2).cpu().numpy()
 
 
 def build_arch_mask(num_blocks: int, *, pattern: str, window_blocks: int = 8,

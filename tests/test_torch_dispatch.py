@@ -1,12 +1,16 @@
-"""Port parity: the dispatch registry and the kind-dispatch intersection.
+"""Port parity: the dispatch registry, the kind-dispatch intersection and
+the word-op and packed-array container kernels.
 
 The same seeded container rows go through the reference's XLA formulation
 (``repro.kernels.roaring.ref``) and the port's plain-torch version
 (``repro_torch.kernels.roaring.ref``); hits and cards must be equal as
-integers. The registry must equal the reference's field by field, and the
-CUDA kernel's generated cell switch must encode it. The CUDA kernel itself
-is held against the plain version by ``test_torch_gpu.py`` (on the card)
-and by ``chip_smoke.py``.
+integers. ``container_op`` (all four ops) and ``array_intersect`` are also
+held bit for bit against the reference's Pallas kernels in interpret mode,
+on ``cases.container_pairs`` / ``cases.array_pairs``. The registry must
+equal the reference's field by field, and the CUDA kernel's generated cell
+switch must encode it. The CUDA kernels themselves are held against the
+plain versions by ``test_torch_gpu.py`` / ``test_torch_gpu_store.py`` (on
+the card) and by ``chip_smoke.py``.
 """
 
 import re
@@ -21,8 +25,10 @@ import jax.numpy as jnp
 from _torch_parity import (KIND_CASES, case_rows, pair_grid,  # noqa: F401
                            release_jax_executables, to_np16, to_t16)
 from repro.kernels.roaring import dispatch as JD
+from repro.kernels.roaring import kernel as JK
 from repro.kernels.roaring import ops as JOPS
 from repro.kernels.roaring import ref as JR
+from repro_torch.kernels.roaring import cases as TC
 from repro_torch.kernels.roaring import dispatch as TD
 from repro_torch.kernels.roaring import kernel as TK
 from repro_torch.kernels.roaring import ops as TOPS
@@ -117,7 +123,8 @@ def test_registry_equals_reference():
 
 def test_intersect_dispatch_every_kind_pair(rows):
     """Every (kind, boundary) pair: hits and cards equal the reference's,
-    and the cards equal a host set-intersection oracle."""
+    and the cards equal a host set-intersection oracle; the stacked entry
+    and the card-only stacked entry equal the reference's stacked entry."""
     for name_a in CASES:
         A, B, meta = pair_grid(rows, [name_a], CASES)
         (hj, cj), (ht, ct) = _both(A, B, meta)
@@ -129,6 +136,8 @@ def test_intersect_dispatch_every_kind_pair(rows):
     vals = {n: set(_values(rows[n])) for n in CASES}
     want = [len(vals[a] & vals[b]) for a in CASES for b in CASES]
     assert ct.tolist() == want
+    _check_stacked_entry(rows)
+    _check_card_only_stacked(rows)
 
 
 def _values(row):
@@ -180,9 +189,48 @@ def _check_card_only_stacked(rows):
     assert np.array_equal(card.numpy(), np.asarray(want))
 
 
-def test_stacked_entries_equal_reference(rows):
-    _check_stacked_entry(rows)
-    _check_card_only_stacked(rows)
+# =============================================================================
+# container_op / array_intersect against the Pallas kernels and oracles
+# =============================================================================
+
+def test_container_kernels_equal_reference():
+    """Both entry points on CPU tensors, bit for bit (tolerance 0), against
+    ``container_op_pallas`` / ``array_intersect_pallas`` in interpret mode
+    and the reference's XLA oracles, on every pair of the case grids."""
+    rng = np.random.default_rng(SEED)
+    A, B, kinds = TC.container_pairs(rng)
+    dead = (kinds[0::2] == 0) & (kinds[1::2] == 0)
+    assert dead.sum() == 4 and (A[dead] != 0).any()   # garbage payload
+    for op in TC.CONTAINER_OPS:
+        out, card = TOPS.container_op(to_t16(A), to_t16(B),
+                                      torch.from_numpy(kinds), op)
+        assert out.dtype == torch.int16 and card.dtype == torch.int32
+        for jo, jc in (
+                JK.container_op_pallas(jnp.asarray(A), jnp.asarray(B),
+                                       jnp.asarray(kinds), op,
+                                       interpret=True),
+                JR.container_op_ref(jnp.asarray(A), jnp.asarray(B),
+                                    jnp.asarray(kinds), op)):
+            assert np.array_equal(to_np16(out), np.asarray(jo)), op
+            assert np.array_equal(card.numpy(), np.asarray(jc)), op
+        assert not to_np16(out)[dead].any() and not card.numpy()[dead].any()
+    A, B, cards = TC.array_pairs(rng)
+    hits, count = TOPS.array_intersect(to_t16(A), to_t16(B),
+                                       torch.from_numpy(cards))
+    assert hits.dtype == torch.int16 and count.dtype == torch.int32
+    for jh, jc in (
+            JK.array_intersect_pallas(jnp.asarray(A), jnp.asarray(B),
+                                      jnp.asarray(cards), interpret=True),
+            JR.array_intersect_ref(jnp.asarray(A), jnp.asarray(B),
+                                   jnp.asarray(cards))):
+        assert np.array_equal(to_np16(hits), np.asarray(jh))
+        assert np.array_equal(count.numpy(), np.asarray(jc))
+    # the host oracle: |A[:card_a] ∩ B[:card_b]| per pair, 65535 included
+    want = [np.intersect1d(a[:ca], b[:cb]).size
+            for a, b, ca, cb in zip(A, B, cards[0::2], cards[1::2])]
+    assert count.tolist() == want
+    assert any(65535 in set(a[:ca]) & set(b[:cb]) for a, b, ca, cb in
+               zip(A, B, cards[0::2], cards[1::2]))
 
 
 def test_lifts_match_reference(rows):
@@ -217,17 +265,28 @@ def _check_launch_hooks_fire_before_the_fault_hook(rows):
         order.append(("fault", backend))
         raise RuntimeError("boom")
 
+    kinds = torch.from_numpy(meta.reshape(-1, 6)[:, :2].reshape(-1).copy())
+    cards = torch.from_numpy(meta.reshape(-1, 6)[:, 2:4].reshape(-1).copy())
+    calls = {"intersect_dispatch": lambda: TOPS.intersect_dispatch(
+                 to_t16(A), to_t16(B), torch.from_numpy(meta)),
+             "container_op": lambda: TOPS.container_op(
+                 to_t16(A), to_t16(B), kinds, "xor"),
+             "array_intersect": lambda: TOPS.array_intersect(
+                 to_t16(A), to_t16(B), cards)}
     TOPS.add_launch_hook(hook)
     prev = TOPS.set_fault_hook(fault)
     try:
-        with pytest.raises(RuntimeError, match="boom"):
-            TOPS.intersect_dispatch(to_t16(A), to_t16(B),
-                                    torch.from_numpy(meta))
+        for call in calls.values():
+            with pytest.raises(RuntimeError, match="boom"):
+                call()
     finally:
         TOPS.set_fault_hook(prev)
         TOPS.remove_launch_hook(hook)
-    assert order == [("launch", "intersect_dispatch", "torch"),
-                     ("fault", "torch")]
+    assert order == [x for entry in calls
+                     for x in (("launch", entry, "torch"),
+                               ("fault", "torch"))]
+    with pytest.raises(ValueError, match="unknown container op"):
+        TOPS.container_op(to_t16(A), to_t16(B), kinds, "nand")
 
 
 def _check_backend_scope_names_and_nesting():
@@ -247,6 +306,12 @@ def _check_cuda_wrappers_refuse_cpu_tensors(rows):
     with pytest.raises(ValueError, match="CUDA tensor"):
         TK.intersect_dispatch_cuda(to_t16(A), to_t16(B),
                                    torch.from_numpy(meta))
+    tags = torch.zeros(2 * A.shape[0], dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        TK.container_op_cuda(to_t16(A), to_t16(B), tags, "and")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        TK.array_intersect_cuda(to_t16(A), to_t16(B), tags)
+    assert {"container_op", "array_intersect"} <= set(TK.launch_counts)
 
 
 def test_entry_point_plumbing(rows):

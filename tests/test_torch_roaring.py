@@ -79,7 +79,7 @@ def _same_slab(js, ts):
     assert np.array_equal(np.asarray(js.data), to_np16(ts.data))
 
 
-def test_finalize_rows_bytes_equal_reference():
+def _check_finalize_rows_bytes():
     for seed in (0, 1, 2):
         keys, data, card, kind = _row_states(seed)
         js = jr._finalize_rows(jnp.asarray(keys), jnp.asarray(data),
@@ -91,8 +91,10 @@ def test_finalize_rows_bytes_equal_reference():
 
 
 def test_row_algebra_equals_reference():
-    """The combine steps, the deferred OR with its recount, the run counts
-    and the row conversions."""
+    """The canonicalization (``_finalize_rows``, field by field and as
+    bytes), the combine steps, the deferred OR with its recount, the run
+    counts and the row conversions."""
+    _check_finalize_rows_bytes()
     for op in ("and", "or", "andnot"):
         _check_combine_step(op)
     _check_deferred_or_and_recount()
@@ -246,7 +248,8 @@ def test_execute_equals_reference_and_host_oracle(stacks):
     """The reference's fused result (its own tests hold it equal to its
     per-op path) == the port's per-op and fused results as bytes, and the
     fused payload word for word; every tree, per-op and fused, equals the
-    host oracle in bytes and card."""
+    host oracle in bytes and card; ``topk_by_card`` equals the reference's,
+    ties included."""
     jstack, tstack = stacks
     je = _build(JIX, EXPRS["mixed"])
     te = _build(TIX, EXPRS["mixed"])
@@ -261,6 +264,7 @@ def test_execute_equals_reference_and_host_oracle(stacks):
     for name in sorted(EXPRS):
         for fused in (False, True):
             _check_execute_against_host_oracle(tstack, name, fused)
+    _check_topk_by_card_with_ties(jstack, tstack)
 
 
 def _oracle_eval(tree, bms):
@@ -284,8 +288,7 @@ def _check_execute_against_host_oracle(tstack, name, fused):
     assert int(TIX.execute_card(tstack, te, fused=fused)) == len(want), name
 
 
-def test_topk_by_card_equals_reference_with_ties(stacks):
-    jstack, tstack = stacks
+def _check_topk_by_card_with_ties(jstack, tstack):
     for q in range(5):
         js, ji = JIX.topk_by_card(jstack, jstack[q], 5)
         ts, ti = TIX.topk_by_card(tstack, tstack[q], 5)

@@ -337,6 +337,9 @@ def _check_imports_with_jax_and_repro_blocked():
         "import repro_torch.sparsity, repro_torch.optim, repro_torch.train\n"
         "import repro_torch.data, repro_torch.checkpoint\n"
         "import repro_torch.runtime, repro_torch.launch.train\n"
+        "import repro_torch.roaring, repro_torch.roaring.validate\n"
+        "import repro_torch.store, repro_torch.store.io\n"
+        "import repro_torch.kernels.roaring.cases\n"
         "assert not any(m.split('.')[0] in ('jax', 'repro') "
         "for m in sys.modules)\n"
         "print('ok')\n")

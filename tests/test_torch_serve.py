@@ -9,7 +9,10 @@ reduced gemma2-2b (G = 2, softcap, window 64) and reduced stablelm-1.6b
   mode and against the reference's own plain version;
 * ``decode_step_paged`` logits and pools, on inputs whose write targets are
   distinct;
-* the page table's lists over one alloc / release sequence, exactly;
+* the page table's lists over one alloc / release sequence, exactly, and
+  at its end the device views (``free_slab``, ``used_slab``,
+  ``rebuild_free_slab``, ``shared_pages*``) as serialized bytes and counts,
+  and ``audit`` reports on the table and on a table with a leaked page;
 * the port's engine against the reference's engine at ``max_batch=1``,
   with its ``serve.step`` span and ``serve.*`` gauges;
 * the port's engine at ``max_batch`` 2 and 4 against greedy over the
@@ -118,7 +121,7 @@ def _check_paged_decode(rng, G, D, page, softcap):
 
 
 def _check_page_table(rng):
-    ref, port = RTable(40, 4), PTable(40, 4)
+    ref, port = RTable(40, 4), PTable(40, 4, device="cpu")
     for _ in range(60):
         sid = int(rng.integers(0, 5))
         if rng.random() < 0.25:
@@ -143,6 +146,29 @@ def _check_page_table(rng):
         for a, b in zip(port.gather_lists(list(range(5)), 16),
                         ref.gather_lists(list(range(5)), 16)):
             assert np.array_equal(a, b)
+    _check_page_views(ref, port)
+    fresh = PTable(40, 4, device="cpu")        # no sequences: one free run
+    assert fresh.used_slab().serialize() == RTable(40, 4).used_slab(
+        ).serialize()
+    assert fresh.rebuild_free_slab().serialize() == \
+        fresh.free_slab().serialize()
+
+
+def _check_page_views(ref, port):
+    for view in ("free_slab", "used_slab", "rebuild_free_slab"):
+        assert getattr(port, view)().serialize() == \
+            getattr(ref, view)().serialize(), view
+    live = sorted(ref.seq_pages)
+    assert live, "the alloc / release sequence left no sequence"
+    a, b = live[0], live[-1]
+    assert port.shared_pages(a, b) == ref.shared_pages(a, b)
+    assert np.array_equal(port.shared_pages_many(a, live),
+                          np.asarray(ref.shared_pages_many(a, live)))
+    for table in (ref, port):
+        assert table.audit().ok, table.audit().summary()
+        table.seq_pages[a].pop()               # leak one page
+    codes = [[v.code for v in t.audit().violations] for t in (ref, port)]
+    assert codes[0] == codes[1] and "page-leak" in codes[1]
 
 
 # ---------------------------------------------------------------- model level

@@ -15,7 +15,9 @@ the CPU, with inputs made from a seed with numpy:
 * the blocked online-softmax branch (``flash_attn``) against
   ``flash_attn_jnp`` at S = 2048, global and sliding-window, forward and
   gradients;
-* ``compile_mask`` / ``build_arch_mask`` and the other mask builders, and
+* ``compile_mask`` / ``build_arch_mask`` and the other mask builders, the
+  device mask algebra on CPU slabs (``union_many(device="cpu")``,
+  ``rows_to_slabs``, ``mask_overlap_cards``, ``mask_jaccard``), and
   ``DataPipeline`` batches, exactly;
 * reduced gemma2-2b with ``attn_impl="sparse"`` at S = 2048 (global layers
   through the block-sparse path, local ones through the blocked branch),
@@ -214,6 +216,20 @@ def _check_masks():
     pd = PS.MaskBuilder(PS.doc_boundary_mask(9, [4]))
     assert _rows(pa.union_many([pw, pd], device=False)) == _rows(
         ra.union_many([rw, rd], device=False))
+    # the device algebra: the slab engine on CPU slabs against the
+    # reference's slab engine
+    assert _rows(pa.union_many([pw, pd], device="cpu")) == _rows(
+        ra.union_many([rw, rd], device=True))
+    ps, rs = PS.rows_to_slabs(pa.rows, device="cpu"), RS.rows_to_slabs(ra.rows)
+    for leaf in ("keys", "kinds", "cards", "nruns"):
+        assert np.array_equal(getattr(ps, leaf).numpy(),
+                              np.asarray(getattr(rs, leaf)))
+    assert np.array_equal(ps.payload.numpy().view(np.uint16),
+                          np.asarray(rs.payload))
+    for fn in ("mask_overlap_cards", "mask_jaccard"):
+        got = getattr(PS, fn)(pa, pw, device="cpu")
+        want = np.asarray(getattr(RS, fn)(ra, rw))
+        assert got.dtype == want.dtype and np.array_equal(got, want), fn
     assert _rows(pa.intersect(pd).subtract(pw)) == _rows(
         ra.intersect(rd).subtract(rw))
     assert PS.mask_density(*PS.compile_mask(pa)) == RS.mask_density(
