@@ -1037,32 +1037,48 @@ def container_rows(torch, K, ops, ref, tr, store, records):
 def check_paged_decode(torch, pd_cases, SK, SR, seed):
     """The paged decode kernel against its plain version over
     ``cases.CHECK_GRID`` (G 1 / 2, D 64 / 256, pages of 8 / 16, softcap on
-    and off), in bf16 and f32: rows with ``starts > 0``, an empty row
-    (``counts = 0``, which must give zeros) and NaN in every page after a
-    row's ``counts``."""
+    and off), in bf16 and f32, on two cases each: rows with ``starts > 0``,
+    an empty row (``counts = 0``, which must give zeros) and NaN in every
+    page after a row's ``counts``; and rows across the kernel's split
+    blocks (a window starting past the first split, a length ending one
+    position into a split, ``counts = 0`` and ``starts >= lengths``, the
+    last two zeros)."""
     rng = np.random.default_rng(seed)
     worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     for G, D, page, softcap in pd_cases.CHECK_GRID:
-        c = pd_cases.paged_decode_case(rng, G, D, page)
-        t = {k: torch.from_numpy(v).cuda() for k, v in c.items()}
-        args = tuple(t[k] for k in ("page_idx", "counts", "lengths",
-                                    "starts"))
-        for dtype in worst:
-            q, kp, vp = (t[k].to(dtype) for k in ("q", "k_pages", "v_pages"))
-            got = SK.paged_decode_cuda(q, kp, vp, *args, softcap=softcap)
-            want = SR.paged_decode_ref(q, kp, vp, *args, softcap=softcap)
-            torch.cuda.synchronize()
-            if (got.dtype != dtype or not bool(torch.isfinite(got).all())
-                    or bool(got[t["counts"] == 0].any())):
-                raise AssertionError(f"paged_decode G={G} D={D} page={page}"
-                                     f" {dtype}: non-finite output or a "
-                                     "non-zero empty row")
-            err = (got.float() - want.float()).abs().max().item()
-            worst[dtype] = max(worst[dtype], err)
-    log(f"check paged_decode: {len(pd_cases.CHECK_GRID)} cases x (bf16, "
+        for make in (pd_cases.paged_decode_case,
+                     pd_cases.paged_decode_split_case):
+            c = make(rng, G, D, page)
+            if make is pd_cases.paged_decode_split_case and SK.decode_split(
+                    *c["q"].shape[:2], c["page_idx"].shape[1] * page,
+                    n_sm) != pd_cases.DECODE_SPLIT:
+                raise AssertionError("the split case no longer crosses the "
+                                     "kernel's splits")
+            t = {k: torch.from_numpy(v).cuda() for k, v in c.items()}
+            args = tuple(t[k] for k in ("page_idx", "counts", "lengths",
+                                        "starts"))
+            empty = torch.from_numpy(pd_cases.no_live_position(c)).cuda()
+            for dtype in worst:
+                q, kp, vp = (t[k].to(dtype)
+                             for k in ("q", "k_pages", "v_pages"))
+                got = SK.paged_decode_cuda(q, kp, vp, *args, softcap=softcap)
+                want = SR.paged_decode_ref(q, kp, vp, *args, softcap=softcap)
+                torch.cuda.synchronize()
+                if (got.dtype != dtype or not bool(torch.isfinite(got).all())
+                        or bool(got[empty].any())):
+                    raise AssertionError(
+                        f"paged_decode {make.__name__} G={G} D={D} "
+                        f"page={page} {dtype}: non-finite output or a "
+                        "non-zero row without live positions")
+                err = (got.float() - want.float()).abs().max().item()
+                worst[dtype] = max(worst[dtype], err)
+    log(f"check paged_decode: {len(pd_cases.CHECK_GRID)} cases x 2 layouts "
+        f"(one across {pd_cases.DECODE_SPLIT}-position splits) x (bf16, "
         f"f32); max abs err {worst[torch.bfloat16]:.3g} (bf16, tolerance "
         f"{BF16_ATOL}), {worst[torch.float32]:.3g} (f32, tolerance "
-        f"{F32_ATOL}); empty rows zero, NaN pages after counts never read")
+        f"{F32_ATOL}); rows without live positions zero, NaN pages after "
+        "counts never read")
     if worst[torch.bfloat16] > BF16_ATOL or worst[torch.float32] > F32_ATOL:
         raise AssertionError("paged_decode disagrees with its plain version")
     return worst[torch.bfloat16]
@@ -1295,6 +1311,15 @@ def time_cold_ms(torch, fn, iters, flush):
     return sum(a.elapsed_time(b) for a, b in marks) / iters
 
 
+def kernel_regs(report, key):
+    """Registers a thread and spilled bytes of the one kernel instantiation
+    whose mangled name holds ``key``, from ``build.ptxas_report``."""
+    hits = [v for name, v in report.items() if key in name]
+    if len(hits) != 1:
+        return "registers not reported"
+    return f"{hits[0][0]} registers a thread, {hits[0][1]} bytes spilled"
+
+
 def paged_decode_bound(q, page_idx, counts, kv_len, starts, page_size):
     """(bound_ms, bound_by) of one paged decode launch: each live position's
     K and V rows read once, each page id of a live page, q and the
@@ -1359,11 +1384,20 @@ def measure_paged_decode(torch, SK, SR, q, kp, vp, page_idx, counts, kv_len,
     return err, ms, pms, lib, bound, n_live
 
 
-def paged_decode_rows(torch, SK, SR, cfg, eng, largest, launches, seed):
+def paged_decode_rows(torch, SK, SR, cfg, eng, largest, launches, seed,
+                      regs):
     """The paged decode kernel at the serve path's largest launch (the
     step with the most live positions, on a global layer, against the
     engine's own pools; q drawn from a seed), and at ``decode_32k``'s
-    shape for one layer with the batch cut from 128 to 32."""
+    shape for one layer with the batch cut from 128 to 32; with the split
+    length each took and the split kernel's registers (``regs``, from
+    ``build.ptxas_report``)."""
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def splits(B, KVH, positions):
+        n = SK.decode_split(B, KVH, positions, n_sm)
+        return (f"{n} positions a split, {B * KVH * -(-positions // n)} "
+                "split blocks")
     gen = torch.Generator(device="cuda").manual_seed(seed)
     flush = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device="cuda")
     B, KVH, hd = eng.max_batch, cfg.n_kv_heads, cfg.hd
@@ -1377,11 +1411,17 @@ def paged_decode_rows(torch, SK, SR, cfg, eng, largest, launches, seed):
     err, ms, pms, lib, bound, n_live = measure_paged_decode(
         torch, SK, SR, q, eng.pools[j]["k"][0], eng.pools[j]["v"][0],
         page_idx, counts, kv_len, starts, cfg.attn_softcap, 50, flush)
+    kg = 1 << (G - 1).bit_length()       # the kernel's head-count class
+    log(f"paged_decode split kernel (bf16, G = {G}, D = {hd}): "
+        f"{kernel_regs(regs, f'split_kernelI13__nv_bfloat16Li{kg}ELi1E')}; "
+        f"combine: {kernel_regs(regs, 'combine_kernelI13__nv_bfloat16E')}")
     row = _row("paged_decode", launches, err, ms, pms, bound,
                f"the serve path's largest launch: B = {B}, KVH = {KVH}, G = "
                f"{G}, D = {hd}, page {eng.page_size}, lengths "
                f"{kv_len.tolist()} ({n_live} live positions), bf16, softcap "
-               f"{cfg.attn_softcap}; cold L2",
+               f"{cfg.attn_softcap}, "
+               f"{splits(B, KVH, page_idx.shape[1] * eng.page_size)}; "
+               "cold L2",
                (lib, "scaled_dot_product_attention (gather excluded, no "
                 "softcap)"))
 
@@ -1404,7 +1444,7 @@ def paged_decode_rows(torch, SK, SR, cfg, eng, largest, launches, seed):
         f"{ms:.4f} ms (plain {pms:.3f} ms, bound {bound[0]:.4f} ms by "
         f"{bound[1]}, scaled_dot_product_attention {lib:.4f} ms with the "
         f"gather excluded and no softcap); max abs err {err:.3g}; "
-        f"{n_live} live positions ({card_line()})")
+        f"{n_live} live positions, {splits(Bc, KVH, L)} ({card_line()})")
     return row
 
 
@@ -1619,12 +1659,13 @@ def sparse_flash_bound(q, k, kv_idx, counts, block, causal=True):
             pairs)
 
 
-def sparse_flash_row(torch, T, SK, SR, cfg, params, lists, batch, launches):
+def sparse_flash_row(torch, T, SK, SR, cfg, params, lists, batch, launches,
+                     regs):
     """The kernel on the inputs the full-width path gave its first global
     layer (captured in an untimed forward), L2 overwritten before each
     launch, beside its plain version and ``scaled_dot_product_attention``
     with the block lists expanded to a boolean mask (no softcap: it cannot
-    apply one)."""
+    apply one); with the tensor-core kernel's registers (``regs``)."""
     import torch.nn.functional as Fn
     captured = []
     orig = SK.sparse_flash_attention_cuda
@@ -1674,6 +1715,10 @@ def sparse_flash_row(torch, T, SK, SR, cfg, params, lists, batch, launches):
     bound, pairs = sparse_flash_bound(q, k, kv_idx.cpu().numpy(),
                                       counts.cpu().numpy(), kw["block_q"],
                                       kw["causal"])
+    heads = 2 if (H // k.shape[1]) % 2 == 0 else 1
+    log(f"sparse_flash_attention tensor-core kernel (D = {D}, {heads} heads "
+        f"a block): "
+        f"{kernel_regs(regs, f'sparse_flash_mma_kernelILi{D}ELi{heads}E')}")
     return _row("sparse_flash_attention", launches, err, ms, pms, bound,
                 f"the train path's global layer: B = {B}, H = {H}, KVH = "
                 f"{k.shape[1]}, S = {S}, D = {D}, {q.dtype}, softcap "
@@ -1735,7 +1780,7 @@ def main(argv=None) -> int:
     from repro_torch.core import py_roaring as pr
     from repro_torch.core import torch_roaring as tr
     from repro_torch.roaring import RoaringFormatSpec as FS
-    from repro_torch.kernels.build import build
+    from repro_torch.kernels.build import build, ptxas_report
     from repro_torch.configs import get_config
     from repro_torch.kernels.sparse_attn import cases as pd_cases
     from repro_torch.kernels.sparse_attn import kernel as SK
@@ -1759,6 +1804,11 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     build()
     log(f"build: {time.perf_counter() - t:.1f} s (nvcc, sm_90a, in parallel)")
+    t = time.perf_counter()
+    regs = ptxas_report(("sparse_attn/csrc/paged_decode.cu",
+                         "sparse_attn/csrc/sparse_flash.cu"))
+    log(f"ptxas report of the attention kernels: {len(regs)} kernels, "
+        f"{time.perf_counter() - t:.1f} s")
     log("kernels: " + json.dumps(list(KERNELS)))
 
     check_kernels(torch, cases, K, ops, ref, F, args.seed)
@@ -1789,7 +1839,7 @@ def main(argv=None) -> int:
     serve_profile(torch, SV, LS, obs, cfg, params, eng, args.seed)
     del params
     rows.append(paged_decode_rows(torch, SK, SR, cfg, eng, largest,
-                                  serve_launches, args.seed))
+                                  serve_launches, args.seed, regs))
     del eng, largest
     gc.collect()
     torch.cuda.empty_cache()
@@ -1800,7 +1850,7 @@ def main(argv=None) -> int:
     train_launches, params, lists, batch = train_path(
         torch, T, SK, SR, TR, cfg, args.seed)
     rows.append(sparse_flash_row(torch, T, SK, SR, cfg, params, lists,
-                                 batch, train_launches))
+                                 batch, train_launches, regs))
     del params, batch
     gc.collect()
     torch.cuda.empty_cache()

@@ -16,12 +16,15 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
+import tempfile
 from pathlib import Path
 from typing import Optional
 
-__all__ = ["build", "library", "raise_on", "NVCC_FLAGS", "SOURCES"]
+__all__ = ["build", "library", "raise_on", "ptxas_report", "NVCC_FLAGS",
+           "SOURCES"]
 
 _ROOT = Path(__file__).resolve().parent
 _BUILD = _ROOT / "_build"
@@ -87,6 +90,36 @@ def build() -> Path:
     os.replace(work / "lib.so", lib)
     shutil.rmtree(work, ignore_errors=True)
     return lib
+
+
+def ptxas_report(sources) -> dict:
+    """Registers a thread and spilled bytes of every kernel in ``sources``
+    (paths as in ``SOURCES``), from ``nvcc -Xptxas -v`` with the build's
+    flags, one ``nvcc`` per source, all started together: {mangled kernel
+    name: (registers, spill stores + loads in bytes)}."""
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, text in _generated().items():
+            (Path(tmp) / name).write_text(text)
+        includes = [a for d in _INCLUDES for a in ("-I", str(_ROOT / d))]
+        procs = [subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, *includes, "-I", tmp, "-Xptxas", "-v",
+             "-c", "-o", str(Path(tmp) / f"{i}.o"), str(_ROOT / src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for i, src in enumerate(sources)]
+        outs = [p.communicate()[0] for p in procs]
+    report, name, spill = {}, None, 0
+    for line in "\n".join(outs).splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spill = m.group(1), 0
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            report[name] = (int(m.group(1)), spill)
+    return report
 
 
 _LIB: Optional[ctypes.CDLL] = None

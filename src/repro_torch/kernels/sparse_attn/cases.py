@@ -9,6 +9,14 @@ that no row lists in its first ``counts`` entries hold NaN, and the padding
 after ``counts`` points at them, so a kernel that reads past ``counts``
 shows it.
 
+Paged decode across splits (``paged_decode_split_case``): the kernel
+splits a row's positions over blocks of ``DECODE_SPLIT`` positions at this
+case's size (``kernel.decode_split`` picks its smallest split for a few
+hundred positions per sequence), and the four rows sit on those
+boundaries: a window that starts past the first split, a length that ends
+one position into a split, ``counts = 0``, and ``starts >= lengths`` with
+pages listed. The last two have no live position and must give zeros.
+
 Block-sparse flash: six q-block rows over six KV blocks of 128 (the
 model's ``sparse_block``). Row 0 lists only block 2, which under the
 causal mask lies wholly in its future, so it has no live score and must
@@ -16,6 +24,8 @@ give zeros (the reference's Pallas kernel gives the mean of V there;
 ROADMAP queue 3); row 1 lists nothing (``counts = 0``); the others list
 2-3 blocks, one of them out of order. Block 5 is listed by no row and
 holds NaN, and every padding entry after ``counts`` points at it.
+``sparse_flash_random_case`` draws longer causal lists at random, for the
+bf16 tensor-core kernel at the training path's shapes.
 """
 
 from __future__ import annotations
@@ -29,13 +39,21 @@ CHECK_GRID = tuple((G, D, page, softcap) for G in (1, 2) for D in (64, 256)
                    for page in (8, 16) for softcap in (None, 50.0))
 
 
+# positions per split block that paged_decode.cu takes for the split case
+DECODE_SPLIT = 64
+
+
 def paged_decode_case(rng: np.random.Generator, G: int, D: int, page: int,
-                      *, KVH: int = 4, max_pages: int = 12) -> dict:
-    """float32 q [4, KVH, G, D], pools [P, page, KVH, D] and int32 page
-    lists / counts / lengths / starts, as numpy arrays."""
-    lengths = np.asarray([page * (max_pages - 1) + 3, page + 2, 0, 3 * page],
-                         np.int32)
-    starts = np.asarray([2 * page + 1, 0, 0, page], np.int32)
+                      *, KVH: int = 4, max_pages: int = 12,
+                      lengths=None, starts=None) -> dict:
+    """float32 q [B, KVH, G, D], pools [P, page, KVH, D] and int32 page
+    lists / counts / lengths / starts, as numpy arrays; by default the four
+    rows of the module docstring (B = 4)."""
+    if lengths is None:
+        lengths = [page * (max_pages - 1) + 3, page + 2, 0, 3 * page]
+        starts = [2 * page + 1, 0, 0, page]
+    lengths = np.asarray(lengths, np.int32)
+    starts = np.asarray(starts, np.int32)
     counts = (-(-lengths // page)).astype(np.int32)
     B, n_nan = len(lengths), 3
     P = int(counts.sum()) + n_nan
@@ -55,6 +73,27 @@ def paged_decode_case(rng: np.random.Generator, G: int, D: int, page: int,
     return {"q": q, "k_pages": k_pages, "v_pages": v_pages,
             "page_idx": page_idx, "counts": counts, "lengths": lengths,
             "starts": starts}
+
+
+def paged_decode_split_case(rng: np.random.Generator, G: int, D: int,
+                            page: int, *, KVH: int = 4) -> dict:
+    """``paged_decode_case`` with rows across ``DECODE_SPLIT``-position
+    splits (B = 4, 6 splits a row): the window starts 5 positions into the
+    third split and the row fills all but 3 positions; a row ends one
+    position into the fourth split; an empty row (``counts = 0``); a row
+    whose window starts past its length (``starts >= lengths``, pages
+    listed)."""
+    n = DECODE_SPLIT
+    max_pages = 6 * n // page
+    return paged_decode_case(
+        rng, G, D, page, KVH=KVH, max_pages=max_pages,
+        lengths=[max_pages * page - 3, 3 * n + 1, 0, n + 36],
+        starts=[2 * n + 5, 0, 0, 2 * n])
+
+
+def no_live_position(c: dict) -> np.ndarray:
+    """bool[B]: the rows of a paged decode case that must give zeros."""
+    return (c["counts"] == 0) | (c["starts"] >= c["lengths"])
 
 
 # (G, D, softcap, causal) of the card's check of the block-sparse flash
@@ -89,4 +128,30 @@ def sparse_flash_case(rng: np.random.Generator, G: int, D: int, *,
                     (FLASH_NAN_BLOCK + 1) * FLASH_BLOCK)
         k[:, :, blk] = np.nan
         v[:, :, blk] = np.nan
+    return {"q": q, "k": k, "v": v, "kv_idx": kv_idx, "counts": counts}
+
+
+def sparse_flash_random_case(rng: np.random.Generator, G: int, D: int,
+                             S: int, *, B: int = 1, KVH: int = 2,
+                             block: int = FLASH_BLOCK) -> dict:
+    """float32 q [B, KVH * G, S, D], k / v [B, KVH, S, D] and random causal
+    block lists: q-block row r lists a random subset of blocks 0..r in
+    random order, and now and then one block after r (wholly in its
+    future, so never read when causal); padding after ``counts`` repeats
+    block 0."""
+    n = S // block
+    rows = []
+    for r in range(n):
+        ids = list(rng.permutation(r + 1)[:int(rng.integers(1, r + 2))])
+        if r + 1 < n and rng.random() < 0.3:
+            ids.insert(int(rng.integers(0, len(ids) + 1)),
+                       int(rng.integers(r + 1, n)))
+        rows.append(ids)
+    kv_idx = np.zeros((n, max(map(len, rows))), np.int32)
+    counts = np.asarray([len(ids) for ids in rows], np.int32)
+    for r, ids in enumerate(rows):
+        kv_idx[r, :len(ids)] = ids
+    q = rng.standard_normal((B, KVH * G, S, D)).astype(np.float32)
+    k = rng.standard_normal((B, KVH, S, D)).astype(np.float32)
+    v = rng.standard_normal((B, KVH, S, D)).astype(np.float32)
     return {"q": q, "k": k, "v": v, "kv_idx": kv_idx, "counts": counts}

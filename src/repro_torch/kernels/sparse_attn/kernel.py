@@ -18,11 +18,16 @@ import torch
 from .. import build as _build
 
 __all__ = ["launch_counts", "reset_launch_counts", "paged_decode_cuda",
-           "sparse_flash_attention_cuda", "MAX_GROUP", "MAX_HEAD_DIM",
-           "FLASH_HEAD_DIMS", "FLASH_Q_TILE", "FLASH_KV_TILE"]
+           "sparse_flash_attention_cuda", "decode_split", "MAX_GROUP",
+           "MAX_HEAD_DIM", "DECODE_SPLITS", "FLASH_HEAD_DIMS", "FLASH_Q_TILE",
+           "FLASH_KV_TILE"]
 
 MAX_GROUP = 8           # query heads per KV head (kMaxG in the source)
 MAX_HEAD_DIM = 256      # kMaxD in the source
+# paged_decode.cu: the positions one split block may own, largest first, and
+# the blocks per SM the split length is cut down for
+DECODE_SPLITS = (512, 256, 128, 64)
+DECODE_BLOCKS_PER_SM = 8
 # sparse_flash.cu: the head dims it is built for, the query rows of one
 # block (block_q is a multiple) and the keys of one sub-tile (block_kv is)
 FLASH_HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -49,7 +54,7 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = _build.library()
         lib.sparse_attn_paged_decode.argtypes = (
-            [_P] * 8 + [_I] * 7 + [ctypes.c_float, ctypes.c_float, _I, _P])
+            [_P] * 9 + [_I] * 8 + [ctypes.c_float, ctypes.c_float, _I, _P])
         lib.sparse_attn_paged_decode.restype = ctypes.c_int
         lib.sparse_attn_sparse_flash.argtypes = (
             [_P] * 6 + [_I] * 10 + [ctypes.c_float, ctypes.c_float, _I, _P])
@@ -69,6 +74,28 @@ def _check(t: torch.Tensor, dtype, name: str, device) -> None:
         raise ValueError(f"{name} must be 16-byte aligned")
 
 
+def decode_split(B: int, KVH: int, positions: int, n_sm: int) -> int:
+    """Positions per split block of ``paged_decode_cuda``: the largest of
+    ``DECODE_SPLITS`` that still gives ``DECODE_BLOCKS_PER_SM`` blocks per
+    SM over the ``positions`` (``page_idx.shape[1] * page_size``) of every
+    (sequence, KV head), else the smallest. Known on the host from shapes
+    alone, so the wrapper never waits on ``lengths``."""
+    for n in DECODE_SPLITS[:-1]:
+        if B * KVH * -(-positions // n) >= DECODE_BLOCKS_PER_SM * n_sm:
+            return n
+    return DECODE_SPLITS[-1]
+
+
+_SM_COUNT: Dict[int, int] = {}
+
+
+def _sm_count(dev: torch.device) -> int:
+    i = dev.index if dev.index is not None else torch.cuda.current_device()
+    if i not in _SM_COUNT:
+        _SM_COUNT[i] = torch.cuda.get_device_properties(i).multi_processor_count
+    return _SM_COUNT[i]
+
+
 def paged_decode_cuda(q: torch.Tensor, k_pages: torch.Tensor,
                       v_pages: torch.Tensor, page_idx: torch.Tensor,
                       counts: torch.Tensor, lengths: torch.Tensor,
@@ -80,7 +107,9 @@ def paged_decode_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     page_size, KVH, D] of q's dtype; page_idx: int32[B, max_pages] with ids
     in [0, P) in the first ``counts[b]`` entries; counts / lengths / starts:
     int32[B]. Returns out [B, KVH, G, D] in q's dtype. G <= 8, D <= 256 and
-    D * itemsize a multiple of 16 bytes.
+    D * itemsize a multiple of 16 bytes. Two launches (the split blocks and
+    their combine) over an f32 workspace that this wrapper allocates; one
+    count.
     """
     if not q.is_cuda:
         raise ValueError(f"q must be a CUDA tensor (got {q.device})")
@@ -108,14 +137,21 @@ def paged_decode_cuda(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError(f"unsupported G = {G}, D = {D} for {q.dtype}")
     if softcap is not None and softcap <= 0:
         raise ValueError("softcap must be positive")
+    max_pages = page_idx.shape[1]
+    split = decode_split(B, KVH, max_pages * page_size, _sm_count(dev))
+    n_splits = -(-max_pages * page_size // split)
+    # per (sequence, KV head, split, query head): (m, l), then acc[D]
+    ws = torch.empty(B * KVH * n_splits * G * (D + 2), dtype=torch.float32,
+                     device=dev)
     out = torch.empty_like(q)
     err = _lib().sparse_attn_paged_decode(
-        *(_P(t.data_ptr()) for t in (q, k_pages, v_pages, page_idx, counts,
-                                     lengths, starts, out)),
-        B, KVH, G, D, P, page_size, page_idx.shape[1],
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        page_idx.data_ptr(), counts.data_ptr(), lengths.data_ptr(),
+        starts.data_ptr(), out.data_ptr(), ws.data_ptr(),
+        B, KVH, G, D, P, page_size, max_pages, split,
         D ** -0.5 if scale is None else scale,
         0.0 if softcap is None else softcap, _DTYPES[q.dtype],
-        _P(torch.cuda.current_stream(dev).cuda_stream))
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.raise_on(err, "paged_decode")
     launch_counts["paged_decode"] += 1
     return out
@@ -134,7 +170,8 @@ def sparse_flash_attention_cuda(q: torch.Tensor, k: torch.Tensor,
     the listed KV block ids of each q-block row in its first ``counts[qb]``
     entries; counts: int32[S / block_q]. Returns out [B, H, S, D] in q's
     dtype. D in ``FLASH_HEAD_DIMS``; block_q a multiple of
-    ``FLASH_Q_TILE``, block_kv of ``FLASH_KV_TILE``.
+    ``FLASH_Q_TILE``, block_kv of ``FLASH_KV_TILE``. bfloat16 runs on the
+    tensor cores, float32 on the CUDA cores (in f32 throughout).
     """
     if not q.is_cuda:
         raise ValueError(f"q must be a CUDA tensor (got {q.device})")

@@ -39,9 +39,21 @@ F32_ATOL = 1e-5
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("G,D,page,softcap", cases.CHECK_GRID)
-def test_paged_decode_kernel_matches_plain_version(G, D, page, softcap,
+@pytest.mark.parametrize("make", [cases.paged_decode_case,
+                                  cases.paged_decode_split_case],
+                         ids=["pages", "splits"])
+def test_paged_decode_kernel_matches_plain_version(make, G, D, page, softcap,
                                                    dtype):
-    c = cases.paged_decode_case(np.random.default_rng(SEED), G, D, page)
+    """Both case layouts: rows with ``starts > 0``, an empty row and NaN
+    pages after ``counts``; and rows on the kernel's split boundaries (a
+    window starting past the first split, a length ending one position
+    into a split, ``counts = 0``, ``starts >= lengths``)."""
+    c = make(np.random.default_rng(SEED), G, D, page)
+    if make is cases.paged_decode_split_case:
+        n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+        assert SK.decode_split(*c["q"].shape[:2],
+                               c["page_idx"].shape[1] * page,
+                               n_sm) == cases.DECODE_SPLIT
     t = {k: torch.from_numpy(v).cuda() for k, v in c.items()}
     q, kp, vp = (t[k].to(dtype) for k in ("q", "k_pages", "v_pages"))
     args = tuple(t[k] for k in ("page_idx", "counts", "lengths", "starts"))
@@ -49,7 +61,7 @@ def test_paged_decode_kernel_matches_plain_version(G, D, page, softcap,
     torch.cuda.synchronize()
     want = SR.paged_decode_ref(q, kp, vp, *args, softcap=softcap)
     assert got.dtype == dtype and torch.isfinite(got).all()
-    assert not got[t["counts"] == 0].any()
+    assert not got[torch.from_numpy(cases.no_live_position(c)).cuda()].any()
     err = (got.float() - want.float()).abs().max().item()
     assert err <= (BF16_ATOL if dtype == torch.bfloat16 else F32_ATOL), err
 

@@ -61,6 +61,28 @@ def test_sparse_flash_kernel_matches_plain_version(G, D, softcap, causal,
     assert err <= (BF16_ATOL if dtype == torch.bfloat16 else F32_ATOL), err
 
 
+@pytest.mark.parametrize("softcap", [None, 50.0])
+def test_sparse_flash_kernel_bf16_train_shape(softcap):
+    """The bf16 tensor-core kernel at gemma2's head dim and GQA pair (D =
+    256, G = 2, S = 2048, block 128) over random causal block lists, held
+    to its plain version within one bf16 rounding of each output (one ulp
+    is at most 2**-7 of the larger magnitude), as ``chip_smoke.py`` holds
+    the training path's launch."""
+    c = cases.sparse_flash_random_case(np.random.default_rng(SEED), 2, 256,
+                                       2048)
+    t = {k: torch.from_numpy(v).cuda() for k, v in c.items()}
+    q, k, v = (t[n].to(torch.bfloat16) for n in "qkv")
+    got = SK.sparse_flash_attention_cuda(q, k, v, t["kv_idx"], t["counts"],
+                                         softcap=softcap)
+    torch.cuda.synchronize()
+    want = SR.sparse_attention_ref(q, k, v, t["kv_idx"], t["counts"],
+                                   softcap=softcap)
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+    diff = (got.float() - want.float()).abs()
+    ulp = 2.0 ** -7 * torch.maximum(got.float().abs(), want.float().abs())
+    assert not (diff > ulp + F32_ATOL).any(), diff.max().item()
+
+
 def test_train_step_on_card_matches_cpu():
     """Reduced gemma2-2b with Roaring block-sparse global layers, float32
     compute, remat: two AdamW steps on the card (through the kernel, two
