@@ -30,8 +30,10 @@ paths of the port end to end:
   under ``ResilientTrainer`` with a simulated failure, ending on the
   parameters of an uninterrupted run.
 
-It then times each kernel on the inputs its path gave it, and profiles warm
-windows to show where the time goes (host spans, device busy share, top
+It then times each kernel on the inputs its path gave it (device time
+alone: a spin on the card ahead of each start event outlasts the host's
+enqueue, checked by a self-test first), and profiles warm windows to show
+where the time goes (host spans, device busy share, top
 device work). The line before the last is one JSON object describing every
 kernel; the last line is the device contract.
 
@@ -75,12 +77,21 @@ SERVE_NEW = 16
 # starts > 0; its teacher-forced length 4,201 + 15 = 4,216 is off the
 # multiples of 512 where forward would take the unported blocked branch
 LONG_PROMPT = 4201
-# greedy check: a step whose top-2 logit gap in the teacher-forced forward
-# is below this is a near-tie (bf16 compute rounds at other places in the
-# decode path and the teacher-forced path, and the engine's logits stay
-# within ~2.5e-3 of forward's), reported and not compared; forward is fed
-# the engine's own tokens, so the steps after a near-tie stay comparable
+# greedy check: where the top-2 logit gap of the teacher-forced forward is
+# at least GAP_TOL the engine's token is forward's argmax; below it (a
+# near-tie) the engine may take the runner-up, within tolerance. Both paths
+# compute in bf16 but round at other places (the decode path's paged cache
+# and kernel against forward's attention), so the engine's logits are held
+# to forward's within what one bf16 ulp in each element of forward's final
+# hidden state x can move a logit: tol(v) = LOGIT_ULP * sum_d |x_d| |W_vd|
+# (bf16 has 8 significant bits, so an ulp is at most 2^-7 of the value; the
+# logit softcap, 30 tanh(z / 30), moves a logit no more than z). At every
+# step the engine's top logit is within tol(token) of forward's logit for
+# the engine's token; at a near-tie, forward's logit for that token is
+# within tol(top) + tol(token) of forward's top logit. forward is fed the
+# engine's own tokens, so the steps after a near-tie stay comparable
 GAP_TOL = 1e-2
+LOGIT_ULP = 2.0 ** -7
 # paged decode against its plain version: bf16 outputs, one rounding apart
 # (one ulp is 2**-7 below magnitude 2)
 BF16_ATOL = 1e-2
@@ -260,7 +271,86 @@ def _bound(nbytes, ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# =============================================================================
+# timers: the card opens the interval, not the host
+# =============================================================================
+
+# SM clock cycles in one ms of ``torch.cuda._sleep``, set by timer_self_test
+_CYCLES_PER_MS = None
+
+
+def _host_ms(torch, fn, n):
+    """Host ms to enqueue ``n`` calls of ``fn`` (the card may lag)."""
+    t = time.perf_counter()
+    for _ in range(n):
+        fn()
+    ms = (time.perf_counter() - t) * 1e3
+    torch.cuda.synchronize()
+    return ms
+
+
+def _card_opened_ms(torch, enqueue, host_ms):
+    """``enqueue(start, end)`` behind a spin on the card that outlasts the
+    host's ``host_ms`` of enqueueing, so the card reaches ``start`` only
+    once the host has queued everything up to ``end``: the interval holds
+    device work alone. Checked, not assumed: if ``start`` has passed by the
+    time ``end`` is queued, the spin is doubled and the call repeated; a
+    call that synchronises never passes and raises."""
+    for attempt in range(4):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        spin_ms = (2 * host_ms + 0.2) * 2 ** attempt
+        torch.cuda._sleep(max(1, int(spin_ms * _CYCLES_PER_MS)))
+        enqueue(start, end)
+        early = start.query()
+        end.synchronize()
+        if not early:
+            return start.elapsed_time(end)
+    raise AssertionError("timer: the card reached the start event before "
+                         "the host had queued the call (does it "
+                         "synchronise?)")
+
+
 def time_ms(torch, fn, iters, warmup=1):
+    """Mean device ms of ``iters`` back-to-back calls of ``fn`` (warm
+    caches), the interval opened by the card (``_card_opened_ms``)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    host = _host_ms(torch, fn, iters)
+
+    def enqueue(start, end):
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+    return _card_opened_ms(torch, enqueue, host) / iters
+
+
+def time_cold_ms(torch, fn, iters, flush):
+    """Mean device ms of ``fn`` alone, with the L2 cache overwritten before
+    each call (the serving path reads each layer's KV after the other
+    layers' weights have passed through it), the interval opened by the
+    card (``_card_opened_ms``)."""
+    fn()
+    torch.cuda.synchronize()
+    host = _host_ms(torch, lambda: (flush.zero_(), fn()), 3) / 3
+
+    def enqueue(start, end):
+        flush.zero_()
+        start.record()
+        fn()
+        end.record()
+    return sum(_card_opened_ms(torch, enqueue, host)
+               for _ in range(iters)) / iters
+
+
+def enqueue_time_ms(torch, fn, iters, warmup=1):
+    """``time_ms`` without the spin: the host records the start event and
+    then enqueues, so where the calls' host work outlasts the card's, the
+    interval holds host time. Times the plain versions (which synchronise:
+    their time is host and device together) and gives the host-opened
+    reading logged beside each kernel's card-opened one."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -272,6 +362,71 @@ def time_ms(torch, fn, iters, warmup=1):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def enqueue_time_cold_ms(torch, fn, iters, flush):
+    """``time_cold_ms`` without the spin (see ``enqueue_time_ms``)."""
+    fn()
+    torch.cuda.synchronize()
+    marks = []
+    for _ in range(iters):
+        flush.zero_()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        marks.append((a, b))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in marks) / iters
+
+
+def timer_self_test(torch):
+    """Sets the spin's clock from a 2,000,000-cycle ``torch.cuda._sleep``,
+    then checks the timers: an empty call must read ~0 ms warm and cold, a
+    call of 0.5 ms host work and no device work too (the host-opened timer
+    reads its host time), and a ``_sleep`` of known cycles its length at
+    the SM clock ``nvidia-smi`` reports."""
+    global _CYCLES_PER_MS
+    cycles = 2_000_000
+    torch.cuda._sleep(cycles)
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    torch.cuda._sleep(cycles)
+    b.record()
+    b.synchronize()
+    _CYCLES_PER_MS = cycles / a.elapsed_time(b)
+    flush = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device="cuda")
+
+    def host_only():
+        t = time.perf_counter()
+        while time.perf_counter() - t < 5e-4:
+            pass
+    known = 200_000
+    got = {
+        "empty warm": time_ms(torch, lambda: None, 20),
+        "empty cold": time_cold_ms(torch, lambda: None, 20, flush),
+        "host-only warm": time_ms(torch, host_only, 20),
+        "host-only cold": time_cold_ms(torch, host_only, 20, flush),
+        "host-only, host-opened timer": enqueue_time_ms(torch, host_only, 20),
+        f"{known}-cycle sleep": time_ms(
+            torch, lambda: torch.cuda._sleep(known), 10),
+    }
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    log("timer self-test (ms): " + ", ".join(
+        f"{k} {v:.5f}" for k, v in got.items())
+        + f"; the sleep reads {known / got[f'{known}-cycle sleep'] / 1e3:.0f}"
+        f" MHz (nvidia-smi clocks.sm, clocks.max.sm: {clocks}); spin clock "
+        f"{_CYCLES_PER_MS / 1e3:.0f} MHz ({card_line()})")
+    if max(got["empty warm"], got["host-only warm"]) > 0.005 or max(
+            got["empty cold"], got["host-only cold"]) > 0.01:
+        raise AssertionError("timer self-test: a call without device work "
+                             "does not read ~0 ms")
 
 
 # =============================================================================
@@ -590,46 +745,64 @@ def where_time_goes(torch, S, obs, index, terms, seed):
             + f"; {device} ({card})")
 
 
-def kernel_rows(torch, K, ref, F, launches, captured):
+def kernel_rows(torch, K, ref, F, launches, captured, regs):
     """Time each kernel on the launch of the main path with the most live
-    work, beside its plain version on the same input, and its bound."""
+    work, beside its plain version on the same input, and its bound; with
+    the host-opened reading beside each card-opened one and the dispatch
+    kernels' registers (``regs``, from ``build.ptxas_report``)."""
     out = []
+    log("dispatch kernels: intersect_dispatch_kernel (hits, a block a "
+        f"pair): {kernel_regs(regs, 'intersect_dispatch_kernel')}; "
+        "stacked_card_kernel (card only) at 8 / 32 lanes a pair: "
+        + "; ".join(kernel_regs(regs, f"stacked_card_kernelILi{g}E")
+                    for g in (8, 32)))
     # per-op AND combine: hits + card
     live, (a, b, meta), kw = captured["intersect_dispatch"]
     hk, ck = K.intersect_dispatch_cuda(a, b, meta)
     hp, cp = ref.intersect_dispatch_ref(a, b, meta)
     err = _max_err(torch, (hk, ck), (hp, cp))
-    ms = time_ms(torch, lambda: K.intersect_dispatch_cuda(a, b, meta), 20)
-    pms = time_ms(torch, lambda: ref.intersect_dispatch_ref(a, b, meta), 3)
+    call = lambda: K.intersect_dispatch_cuda(a, b, meta)  # noqa: E731
+    ms, old = time_ms(torch, call, 20), enqueue_time_ms(torch, call, 20)
+    pms = enqueue_time_ms(torch, lambda: ref.intersect_dispatch_ref(
+        a, b, meta), 3)
     bound = dispatch_bound(torch, a, b, meta, True)
     out.append(_row("intersect_dispatch", launches, err, ms, pms, bound,
-                    f"{a.shape[0]} pairs ({live} live)"))
+                    f"{a.shape[0]} pairs ({live} live)", old_ms=old))
 
     # stacked top-k scoring: card only, the query's C rows read once
     live, (a, q, meta), kw = captured["intersect_dispatch_stacked"]
     _, ck = K.intersect_dispatch_cuda(a, q, meta, **kw)
     cp = _plain_card_only(torch, ref, a, q, meta)
     err = _max_err(torch, (ck,), (cp,))
-    ms = time_ms(torch, lambda: K.intersect_dispatch_cuda(a, q, meta, **kw),
-                 10)
-    pms = time_ms(torch, lambda: _plain_card_only(torch, ref, a, q, meta), 1,
-                  warmup=0)
+    call = lambda: K.intersect_dispatch_cuda(a, q, meta, **kw)  # noqa: E731
+    ms, old = time_ms(torch, call, 10), enqueue_time_ms(torch, call, 10)
+    pms = enqueue_time_ms(torch, lambda: _plain_card_only(
+        torch, ref, a, q, meta), 1, warmup=0)
     bound = dispatch_bound(torch, a, q, meta, False)
+    N, C = a.shape[0] // q.shape[0], q.shape[0]
+    split, lanes = K.stacked_plan(N, C, _n_sm(torch))
     out.append(_row("intersect_dispatch_stacked", launches, err, ms, pms,
-                    bound, f"{a.shape[0]} pairs ({live} live) vs "
-                    f"{q.shape[0]} query rows, card only"))
+                    bound, f"{a.shape[0]} pairs ({live} live) = {N} slabs x "
+                    f"{C} query rows, card only; grid {C} x {split} blocks, "
+                    f"{lanes} lanes a pair", old_ms=old))
 
     live, (o, lm, plan), _ = captured["fused_tree"]
     bk, ck = K.fused_eval_cuda(o, lm, plan)
     bp, cp = F.fused_eval_ref(o, lm, plan=plan)
     err = _max_err(torch, (bk, ck), (bp, cp))
-    ms = time_ms(torch, lambda: K.fused_eval_cuda(o, lm, plan), 20)
-    pms = time_ms(torch, lambda: F.fused_eval_ref(o, lm, plan=plan), 3)
+    call = lambda: K.fused_eval_cuda(o, lm, plan)  # noqa: E731
+    ms, old = time_ms(torch, call, 20), enqueue_time_ms(torch, call, 20)
+    pms = enqueue_time_ms(torch, lambda: F.fused_eval_ref(o, lm, plan=plan),
+                          3)
     bound = fused_bound(lm.cpu().numpy(), plan.n_ops, o.shape[0], o.shape[1])
     out.append(_row("fused_tree", launches, err, ms, pms, bound,
                     f"{o.shape[0]} operands x {o.shape[1]} columns ({live} "
-                    f"live operand rows), {plan.n_ops} word ops"))
+                    f"live operand rows), {plan.n_ops} word ops", old_ms=old))
     return out
+
+
+def _n_sm(torch):
+    return torch.cuda.get_device_properties(0).multi_processor_count
 
 
 def _plain_card_only(torch, ref, a, q, meta, chunk=16384):
@@ -659,12 +832,15 @@ def _max_err(torch, got, want):
     return err
 
 
-def _row(name, launches, err, ms, pms, bound, shape, library=None):
+def _row(name, launches, err, ms, pms, bound, shape, library=None,
+         old_ms=None):
     src, replaces = KERNELS[name]
     lib_ms, lib_what = library or (None, "none")
-    log(f"{name}: {ms:.4f} ms (plain {pms:.3f} ms, bound {bound[0]:.4f} ms "
-        f"by {bound[1]}) at {shape}; launches {launches[name]}; "
-        f"library call: {lib_what}" + (f" {lib_ms:.4f} ms" if lib_ms else ""))
+    log(f"{name}: {ms:.4f} ms card-opened (host-opened timer {old_ms:.4f} "
+        f"ms; plain {pms:.3f} ms, bound {bound[0]:.4f} ms by {bound[1]}, "
+        f"{100 * bound[0] / ms:.1f} % of it) at {shape}; launches "
+        f"{launches[name]}; library call: {lib_what}"
+        + (f" {lib_ms:.4f} ms" if lib_ms else "") + f" ({card_line()})")
     return {"name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": int(launches[name]),
             "max_abs_err": err, "ms": ms, "plain_ms": pms,
@@ -781,10 +957,11 @@ def ssb_queries(ST):
     }
 
 
-def store_path(torch, ST, K, pr, FS, sf, seed, device="cuda"):
+def store_path(torch, ST, K, ref, pr, FS, sf, seed, device="cuda"):
     """SSB LINEORDER as a bitmap index on the card: build, the Q1 flight
     fused and per-op (count, rows, sum of lo_extendedprice) against a numpy
-    row filter of the same records, a closed-loop fused count rate per
+    row filter of the same records, each ``sum_`` launch of the card-only
+    kernel against its plain version, a closed-loop fused count rate per
     query, and a save -> load(check=True) -> save round trip. Returns the
     store and its records."""
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
@@ -816,25 +993,20 @@ def store_path(torch, ST, K, pr, FS, sf, seed, device="cuda"):
         timings[key] = (time.perf_counter() - t) * 1e3
         return out
 
-    for name, (pred, _) in queries.items():
-        before = dict(K.launch_counts)
-        got = {}
-        for fused in (True, False):
-            n0 = K.launch_counts["fused_tree"]
-            got[("count", fused)] = timed(
-                (name, "count", fused),
-                lambda: store.count(pred, fused=fused))
-            got[("rows", fused)] = timed(
-                (name, "rows", fused),
-                lambda: store.query(pred, fused=fused).serialize())
-            if fused and K.launch_counts["fused_tree"] - n0 != 2:
-                raise AssertionError(f"{name}: a fused query is one "
-                                     "fused_tree launch")
-        got["sum"] = timed((name, "sum"), lambda: store.sum_(
-            "lo_extendedprice", pred))
-        answers[name] = got
-        per_query[name] = {k: v - before[k] for k, v in
-                           K.launch_counts.items() if v - before[k]}
+    sums = []                      # each sum_ launch as the kernel got it
+    launch = K.intersect_dispatch_cuda
+
+    def capture(a, b, meta, **kw):
+        if not kw.get("want_hits", True):
+            sums.append((a, b, meta, dict(kw)))
+        return launch(a, b, meta, **kw)
+    K.intersect_dispatch_cuda = capture
+    try:
+        for name, (pred, _) in queries.items():
+            answers[name], per_query[name] = _store_answers(
+                K, store, name, pred, timed)
+    finally:
+        K.intersect_dispatch_cuda = launch
     launches = dict(K.launch_counts)
     for name, (_, mask) in queries.items():
         ids = np.nonzero(mask(records))[0]
@@ -866,6 +1038,8 @@ def store_path(torch, ST, K, pr, FS, sf, seed, device="cuda"):
             raise AssertionError(f"kernel {name} never launched on the "
                                  "store path")
     log(f"launches on the store path: {launches}")
+    if device == "cuda":
+        check_sums(torch, K, ref, sums, card)
     for name, (pred, _) in queries.items():
         n, t = 0, time.perf_counter()
         while time.perf_counter() - t < SSB_RATE_S:
@@ -905,6 +1079,50 @@ def store_path(torch, ST, K, pr, FS, sf, seed, device="cuda"):
         f"max_stack_cells={cells}) in {t_load:.1f} s re-saves "
         f"byte-identically; plan cache {stats}")
     return store, records
+
+
+def _store_answers(K, store, name, pred, timed):
+    """One SSB query's count and rows, fused and per-op, and its sum_, each
+    timed as a first call; returns (answers, launches per kernel)."""
+    before = dict(K.launch_counts)
+    got = {}
+    for fused in (True, False):
+        n0 = K.launch_counts["fused_tree"]
+        got[("count", fused)] = timed(
+            (name, "count", fused), lambda: store.count(pred, fused=fused))
+        got[("rows", fused)] = timed(
+            (name, "rows", fused),
+            lambda: store.query(pred, fused=fused).serialize())
+        if fused and K.launch_counts["fused_tree"] - n0 != 2:
+            raise AssertionError(f"{name}: a fused query is one fused_tree "
+                                 "launch")
+    got["sum"] = timed((name, "sum"), lambda: store.sum_(
+        "lo_extendedprice", pred))
+    return got, {k: v - before[k] for k, v in K.launch_counts.items()
+                 if v - before[k]}
+
+
+def check_sums(torch, K, ref, sums, card):
+    """Each card-only launch that ``sum_`` made (bit slices x chunks against
+    the predicate's rows) against its plain version, bit for bit; the
+    largest timed."""
+    for a, q, meta, kw in sums:
+        _, got = K.intersect_dispatch_cuda(a, q, meta, **kw)
+        _max_err(torch, (got,), (_plain_card_only(torch, ref, a, q, meta),))
+    a, q, meta, kw = max(sums, key=lambda x: x[0].shape[0])
+    call = lambda: K.intersect_dispatch_cuda(a, q, meta, **kw)  # noqa: E731
+    ms, old = time_ms(torch, call, 20), enqueue_time_ms(torch, call, 20)
+    bound = dispatch_bound(torch, a, q, meta, False)
+    N, C = a.shape[0] // q.shape[0], q.shape[0]
+    shapes = ", ".join(f"{x[0].shape[0] // x[1].shape[0]} x {x[1].shape[0]}"
+                       for x in sums)
+    log(f"store sum_: {len(sums)} card-only launches of "
+        f"intersect_dispatch_stacked ({shapes} slices x chunks) "
+        "bit-identical to the plain version; the largest, (grid split, "
+        f"lanes a pair) {K.stacked_plan(N, C, _n_sm(torch))}: {ms:.4f} ms "
+        f"card-opened (host-opened timer {old:.4f} ms), bound "
+        f"{bound[0]:.4f} ms by {bound[1]} ({100 * bound[0] / ms:.1f} % of "
+        f"it) ({card})")
 
 
 def _plain_chunks(torch, fn, n, chunk=32768):
@@ -997,27 +1215,32 @@ def container_rows(torch, K, ops, ref, tr, store, records):
     read[C:] |= live
     nbytes = int(read.sum()) * 8192 + a.shape[0] * (8192 + 8 + 4)
     bound = _bound(nbytes, n_live * 2048 * 3)
-    ms, pms, err = [], [], 0
+    ms, old, pms, err = [], [], [], 0
     for op in CONTAINER_OPS:
         plain = _plain_chunks(torch, lambda s: ref.container_op_ref(
             a[s], b[s], tags[2 * s.start:2 * s.stop], op), a.shape[0])
         err = max(err, _max_err(torch, outs[op], plain))
-        ms.append(time_ms(torch, lambda: K.container_op_cuda(
-            a, b, tags, op), 5))
-        pms.append(time_ms(torch, lambda: _plain_chunks(
+        call = lambda: K.container_op_cuda(a, b, tags, op)  # noqa: E731
+        ms.append(time_ms(torch, call, 5))
+        old.append(enqueue_time_ms(torch, call, 5))
+        pms.append(enqueue_time_ms(torch, lambda: _plain_chunks(
             torch, lambda s: ref.container_op_ref(
                 a[s], b[s], tags[2 * s.start:2 * s.stop], op),
             a.shape[0]), 1, warmup=0))
-        log(f"container_op {op}: {ms[-1]:.4f} ms, plain {pms[-1]:.3f} ms")
+        log(f"container_op {op}: {ms[-1]:.4f} ms (host-opened timer "
+            f"{old[-1]:.4f} ms), plain {pms[-1]:.3f} ms")
     rows.append(_row("container_op", launches, err, sum(ms) / len(ms),
                      sum(pms) / len(pms), bound,
                      f"{a.shape[0]} row pairs of slabs 2..{N - 2} x "
-                     f"3..{N - 1} ({n_live} live), mean of the four ops"))
+                     f"3..{N - 1} ({n_live} live), mean of the four ops",
+                     old_ms=sum(old) / len(old)))
 
     plain = ref.array_intersect_ref(ia, ib, cards)
     err = _max_err(torch, (hits, count), plain)
-    ms = time_ms(torch, lambda: K.array_intersect_cuda(ia, ib, cards), 10)
-    pms = time_ms(torch, lambda: ref.array_intersect_ref(ia, ib, cards), 2)
+    call = lambda: K.array_intersect_cuda(ia, ib, cards)  # noqa: E731
+    ms, old = time_ms(torch, call, 10), enqueue_time_ms(torch, call, 10)
+    pms = enqueue_time_ms(torch, lambda: ref.array_intersect_ref(
+        ia, ib, cards), 2)
     ca64, cb64 = ca.cpu().numpy().astype(np.int64), \
         cb.cpu().numpy().astype(np.int64)
     nbytes = int((2 * (ca64 + cb64)).sum()) + ia.shape[0] * (8192 + 8 + 4)
@@ -1027,7 +1250,7 @@ def container_rows(torch, K, ops, ref, tr, store, records):
                      f"chunks; mean card {ca64.mean():.0f} x "
                      f"{cb64.mean():.0f}; {n_runs} of {2 * ia.shape[0]} "
                      f"rows stored as runs, fed in packed-array form); "
-                     f"{want} rows in month and week"))
+                     f"{want} rows in month and week", old_ms=old))
     return rows
 
 # =============================================================================
@@ -1186,18 +1409,27 @@ def serve_path(torch, T, SV, LS, SK, cfg, seed, device="cuda"):
 
 
 def check_greedy(torch, T, cfg, params, reqs, steps, tops):
-    """Every request's tokens against argmax over the port's teacher-forced
-    ``forward`` of its prompt and its own tokens, at every step but the
-    near-ties (top-2 gap under ``GAP_TOL``), which are reported. Also
-    reports how far the engine's top logit is from ``forward``'s logit for
-    the same token."""
+    """Every request's tokens against the port's teacher-forced ``forward``
+    of its prompt and its own tokens, at every step: forward's argmax where
+    its top-2 gap is at least ``GAP_TOL``, and within the logit tolerance
+    (``LOGIT_ULP``, from forward's final hidden state) at a near-tie; the
+    engine's top logit within tolerance of forward's logit for the same
+    token everywhere."""
     top_vals = torch.cat([t.values for t in tops]).cpu().numpy()
     sampled = {}
     for i, (rid, is_sample) in enumerate(steps):
         if is_sample:
             sampled.setdefault(rid, []).append(i)
-    compared = total = 0
-    near, worst = [], 0.0
+    table = (params["embed"] if cfg.tie_embeddings
+             else params["unembed"])["table"]
+    hidden = []
+    unembed = T.common.unembed
+
+    def keep(tbl, x, **kw):             # forward's final hidden state
+        hidden.append(x)
+        return unembed(tbl, x, **kw)
+    exact = total = 0
+    near, worst, ratio, tols = [], 0.0, 0.0, []
     t = time.perf_counter()
     long = [r for r in reqs if len(r.prompt) > 512]     # padding the short
     short = [r for r in reqs if len(r.prompt) <= 512]   # ones to it wastes
@@ -1208,36 +1440,69 @@ def check_greedy(torch, T, cfg, params, reqs, steps, tops):
         tokens = np.zeros((len(seqs), max(map(len, seqs))), np.int64)
         for i, sq in enumerate(seqs):       # causal: the tail padding never
             tokens[i, :len(sq)] = sq        # reaches an earlier position
-        logits, _ = T.forward(params, torch.from_numpy(tokens).to(
-            params["final_norm"]["scale"].device), cfg)
+        T.common.unembed = keep
+        try:
+            logits, _ = T.forward(params, torch.from_numpy(tokens).to(
+                table.device), cfg)
+        finally:
+            T.common.unembed = unembed
+        x = hidden.pop()
         for i, r in enumerate(group):
             a = len(r.prompt) - 1
-            f = logits[i, a:a + len(r.generated)].float()
+            n = len(r.generated)
+            f = logits[i, a:a + n].float()
             top2 = torch.topk(f, 2)
             gap = (top2.values[:, 0] - top2.values[:, 1]).cpu().numpy()
-            arg = top2.indices[:, 0].cpu().numpy()
+            arg = top2.indices[:, 0]
             tok = torch.as_tensor(r.generated, device=f.device)
-            at_tok = f.gather(1, tok[:, None])[:, 0].cpu().numpy()
+            at_tok = f.gather(1, tok[:, None])[:, 0]
+            xa = x[i, a:a + n].float().abs()
+            tol_tok, tol_top = (LOGIT_ULP * (xa * table[v].abs()).sum(
+                1).cpu().numpy() for v in (tok, arg))
+            behind = (top2.values[:, 0] - at_tok).cpu().numpy()
+            at_tok, arg = at_tok.cpu().numpy(), arg.cpu().numpy()
             eng_top = top_vals[sampled[r.req_id], 0]
-            worst = max(worst, float(np.abs(eng_top - at_tok).max()))
-            total += len(r.generated)
+            off = np.abs(eng_top - at_tok)
+            worst = max(worst, float(off.max()))
+            ratio = max(ratio, float((off / tol_tok).max()))
+            tols += list(tol_tok)
+            total += n
             for k, g in enumerate(r.generated):
-                if gap[k] < GAP_TOL:
-                    near.append((r.req_id, k, round(float(gap[k]), 5),
-                                 g == int(arg[k])))
-                    continue
-                if g != int(arg[k]):
+                if off[k] > tol_tok[k]:
                     raise AssertionError(
-                        f"request {r.req_id} step {k}: engine token {g}, "
-                        f"teacher-forced greedy {int(arg[k])} (top-2 gap "
-                        f"{gap[k]:.4g}, engine top logit {eng_top[k]:.4g}, "
-                        f"forward's logit for it {at_tok[k]:.4g})")
-                compared += 1
-        del logits
-    log(f"greedy: {compared} of {total} steps equal argmax over the "
-        f"teacher-forced forward (gap tolerance {GAP_TOL}); near-ties not "
-        f"compared (request, step, gap, equal anyway): {near}; max "
-        f"|engine top logit - forward logit for that token| {worst:.4g}; "
+                        f"request {r.req_id} step {k}: engine top logit "
+                        f"{eng_top[k]:.6g}, forward's logit for its token "
+                        f"{at_tok[k]:.6g}, beyond the tolerance "
+                        f"{tol_tok[k]:.4g}")
+                if gap[k] >= GAP_TOL:
+                    if g != int(arg[k]):
+                        raise AssertionError(
+                            f"request {r.req_id} step {k}: engine token {g},"
+                            f" teacher-forced greedy {int(arg[k])} (top-2 "
+                            f"gap {gap[k]:.4g}, engine top logit "
+                            f"{eng_top[k]:.4g}, forward's logit for it "
+                            f"{at_tok[k]:.4g})")
+                    exact += 1
+                    continue
+                if behind[k] > tol_top[k] + tol_tok[k]:
+                    raise AssertionError(
+                        f"request {r.req_id} step {k}: a near-tie (gap "
+                        f"{gap[k]:.4g}) where forward's logit for the "
+                        f"engine's token {g} is {behind[k]:.4g} below its "
+                        f"top, beyond the tolerance "
+                        f"{tol_top[k] + tol_tok[k]:.4g}")
+                near.append((r.req_id, k, round(float(gap[k]), 5),
+                             round(float(behind[k]), 5),
+                             round(float(tol_top[k] + tol_tok[k]), 5)))
+        del logits, x
+    log(f"greedy: all {total} steps compared; {exact} with a top-2 gap of "
+        f"at least {GAP_TOL} equal forward's argmax; {len(near)} near-ties "
+        "within tolerance (request, step, gap, forward's top logit minus "
+        f"its logit for the engine's token, tolerance): {near}; max "
+        f"|engine top logit - forward logit for that token| {worst:.4g}, "
+        f"at most {ratio:.3f} of its tolerance (tolerances "
+        f"{min(tols):.4g}-{max(tols):.4g}: one bf16 ulp, "
+        f"{LOGIT_ULP}, of each element of forward's final hidden state); "
         f"forward {time.perf_counter() - t:.1f} s")
 
 
@@ -1292,25 +1557,6 @@ def _leaves(tree):
     return [tree]
 
 
-def time_cold_ms(torch, fn, iters, flush):
-    """Mean ms of ``fn`` by CUDA events around each call alone, with the L2
-    cache overwritten before each (the serving path reads each layer's KV
-    after the other layers' weights have passed through it)."""
-    fn()
-    torch.cuda.synchronize()
-    marks = []
-    for _ in range(iters):
-        flush.zero_()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        marks.append((a, b))
-    torch.cuda.synchronize()
-    return sum(a.elapsed_time(b) for a, b in marks) / iters
-
-
 def kernel_regs(report, key):
     """Registers a thread and spilled bytes of the one kernel instantiation
     whose mangled name holds ``key``, from ``build.ptxas_report``."""
@@ -1361,9 +1607,10 @@ def measure_paged_decode(torch, SK, SR, q, kp, vp, page_idx, counts, kv_len,
         raise AssertionError(f"paged_decode disagrees with its plain version "
                              f"(max abs err {err:.4g})")
     del got, want
-    ms = time_cold_ms(torch, lambda: SK.paged_decode_cuda(
-        *args, softcap=softcap), iters, flush)
-    pms = time_cold_ms(torch, lambda: SR.paged_decode_ref(
+    call = lambda: SK.paged_decode_cuda(*args, softcap=softcap)  # noqa
+    ms = time_cold_ms(torch, call, iters, flush)
+    old = enqueue_time_cold_ms(torch, call, iters, flush)
+    pms = enqueue_time_cold_ms(torch, lambda: SR.paged_decode_ref(
         *args, softcap=softcap), max(2, iters // 10), flush)
     B, KVH, G, D = q.shape
     L = int(counts.max()) * ps
@@ -1381,7 +1628,7 @@ def measure_paged_decode(torch, SK, SR, q, kp, vp, page_idx, counts, kv_len,
     del k_seq, v_seq
     bound, n_live = paged_decode_bound(q, page_idx, counts, kv_len, starts,
                                        ps)
-    return err, ms, pms, lib, bound, n_live
+    return err, ms, old, pms, lib, bound, n_live
 
 
 def paged_decode_rows(torch, SK, SR, cfg, eng, largest, launches, seed,
@@ -1408,7 +1655,7 @@ def paged_decode_rows(torch, SK, SR, cfg, eng, largest, launches, seed,
     starts = np.zeros_like(kv_len)
     j = cfg.block_kinds().index("attn_mlp")              # a global layer
     q = torch.randn((B, KVH, G, hd), generator=gen, device="cuda").to(dt)
-    err, ms, pms, lib, bound, n_live = measure_paged_decode(
+    err, ms, old, pms, lib, bound, n_live = measure_paged_decode(
         torch, SK, SR, q, eng.pools[j]["k"][0], eng.pools[j]["v"][0],
         page_idx, counts, kv_len, starts, cfg.attn_softcap, 50, flush)
     kg = 1 << (G - 1).bit_length()       # the kernel's head-count class
@@ -1423,7 +1670,7 @@ def paged_decode_rows(torch, SK, SR, cfg, eng, largest, launches, seed,
                f"{splits(B, KVH, page_idx.shape[1] * eng.page_size)}; "
                "cold L2",
                (lib, "scaled_dot_product_attention (gather excluded, no "
-                "softcap)"))
+                "softcap)"), old_ms=old)
 
     Bc, L, ps = 32, 32_768, 16
     n_pp = L // ps
@@ -1436,12 +1683,13 @@ def paged_decode_rows(torch, SK, SR, cfg, eng, largest, launches, seed,
                      dtype=dt)
     q = torch.randn((Bc, KVH, G, hd), generator=gen, device="cuda").to(dt)
     full = np.full((Bc,), L, np.int32)
-    err, ms, pms, lib, bound, n_live = measure_paged_decode(
+    err, ms, old, pms, lib, bound, n_live = measure_paged_decode(
         torch, SK, SR, q, kp, vp, pidx, np.full((Bc,), n_pp, np.int32), full,
         np.zeros_like(full), cfg.attn_softcap, 10, flush)
     log(f"paged_decode at decode_32k, one global layer, batch cut from 128 "
         f"to {Bc} (KV {L} tokens, pools {2 * kp.numel() * kp.element_size() / 1e9:.2f} GB): "
-        f"{ms:.4f} ms (plain {pms:.3f} ms, bound {bound[0]:.4f} ms by "
+        f"{ms:.4f} ms card-opened (host-opened timer {old:.4f} ms; plain "
+        f"{pms:.3f} ms, bound {bound[0]:.4f} ms by "
         f"{bound[1]}, scaled_dot_product_attention {lib:.4f} ms with the "
         f"gather excluded and no softcap); max abs err {err:.3g}; "
         f"{n_live} live positions, {splits(Bc, KVH, L)} ({card_line()})")
@@ -1701,9 +1949,11 @@ def sparse_flash_row(torch, T, SK, SR, cfg, params, lists, batch, launches,
         f"(|out| up to {want.float().abs().max().item():.3g})")
     del got, want, diff, ulp
     flush = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device="cuda")
-    ms = time_cold_ms(torch, lambda: SK.sparse_flash_attention_cuda(
-        q, k, v, kv_idx, counts, **kw), 20, flush)
-    pms = time_cold_ms(torch, lambda: SR.sparse_attention_ref(
+    call = lambda: SK.sparse_flash_attention_cuda(  # noqa: E731
+        q, k, v, kv_idx, counts, **kw)
+    ms = time_cold_ms(torch, call, 20, flush)
+    old = enqueue_time_cold_ms(torch, call, 20, flush)
+    pms = enqueue_time_cold_ms(torch, lambda: SR.sparse_attention_ref(
         q, k, v, kv_idx, counts, **kw), 5, flush)
     B, H, S, D = q.shape
     dense = SR.block_mask_to_dense(kv_idx, counts, S // kw["block_kv"])
@@ -1725,7 +1975,7 @@ def sparse_flash_row(torch, T, SK, SR, cfg, params, lists, batch, launches,
                 f"{kw['softcap']}, {int(counts.sum())} listed blocks, "
                 f"{pairs} live pairs; cold L2",
                 (lib, "scaled_dot_product_attention (block lists expanded "
-                 "to a boolean mask, no softcap)"))
+                 "to a boolean mask, no softcap)"), old_ms=old)
 
 
 def launcher_path(torch, LT, simulate_failure):
@@ -1806,10 +2056,12 @@ def main(argv=None) -> int:
     log(f"build: {time.perf_counter() - t:.1f} s (nvcc, sm_90a, in parallel)")
     t = time.perf_counter()
     regs = ptxas_report(("sparse_attn/csrc/paged_decode.cu",
-                         "sparse_attn/csrc/sparse_flash.cu"))
-    log(f"ptxas report of the attention kernels: {len(regs)} kernels, "
-        f"{time.perf_counter() - t:.1f} s")
+                         "sparse_attn/csrc/sparse_flash.cu",
+                         "roaring/csrc/intersect_dispatch.cu"))
+    log(f"ptxas report of the attention and dispatch kernels: {len(regs)} "
+        f"kernels, {time.perf_counter() - t:.1f} s")
     log("kernels: " + json.dumps(list(KERNELS)))
+    timer_self_test(torch)
 
     check_kernels(torch, cases, K, ops, ref, F, args.seed)
     check_containers(torch, cases, K, ref, args.seed)
@@ -1819,13 +2071,14 @@ def main(argv=None) -> int:
     launches, index, terms = main_path(torch, S, K, obs, args.terms,
                                        args.seed)
     captured = capture_inputs(torch, S, K, index, terms, args.seed)
-    rows = kernel_rows(torch, K, ref, F, launches, captured)
+    rows = kernel_rows(torch, K, ref, F, launches, captured, regs)
     where_time_goes(torch, S, obs, index, terms, args.seed)
     del index, captured
     log(f"search phases: {time.perf_counter() - t:.1f} s")
 
     t = time.perf_counter()
-    store, records = store_path(torch, ST, K, pr, FS, SSB_SF, args.seed)
+    store, records = store_path(torch, ST, K, ref, pr, FS, SSB_SF,
+                                args.seed)
     rows += container_rows(torch, K, ops, ref, tr, store, records)
     del store, records
     gc.collect()

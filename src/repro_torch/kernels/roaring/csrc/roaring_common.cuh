@@ -55,16 +55,18 @@ __device__ __forceinline__ uint32_t run_cov_word(const uint16_t* runs, int nr,
   return cov;
 }
 
-// Sum of `v` over the block; the result is valid in thread 0.
+// Sum of `v` over a block of kBlock threads; the result is valid in
+// thread 0.
+template <int kBlock = kThreads>
 __device__ __forceinline__ int block_sum(int v) {
-  __shared__ int partial[kThreads / 32];
+  __shared__ int partial[kBlock / 32];
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xFFFFFFFFu, v, o);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (lane == 0) partial[warp] = v;
   __syncthreads();
   v = 0;
   if (threadIdx.x < 32) {
-    v = threadIdx.x < kThreads / 32 ? partial[threadIdx.x] : 0;
+    v = threadIdx.x < kBlock / 32 ? partial[threadIdx.x] : 0;
     for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xFFFFFFFFu, v, o);
   }
   return v;

@@ -21,7 +21,7 @@ from . import dispatch as D
 from . import fused as F
 
 __all__ = ["and_table_source", "launch_counts",
-           "reset_launch_counts", "intersect_dispatch_cuda",
+           "reset_launch_counts", "intersect_dispatch_cuda", "stacked_plan",
            "fused_eval_cuda", "fused_max_smem_slots", "container_op_cuda",
            "array_intersect_cuda", "CONTAINER_OPS"]
 
@@ -77,6 +77,10 @@ def _lib() -> ctypes.CDLL:
         lib.roaring_intersect_dispatch.argtypes = [
             _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, _P]
         lib.roaring_intersect_dispatch.restype = ctypes.c_int
+        lib.roaring_stacked_card.argtypes = [
+            _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong,
+            ctypes.c_int, ctypes.c_int, _P]
+        lib.roaring_stacked_card.restype = ctypes.c_int
         lib.roaring_fused_eval.argtypes = [
             _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, _P, _P, _P, _P]
@@ -112,17 +116,46 @@ def _stream(t: torch.Tensor):
     return _P(torch.cuda.current_stream(t.device).cuda_stream)
 
 
+_N_SM: Dict[int, int] = {}
+
+
+def _n_sm(device) -> int:
+    idx = torch.device(device).index or 0
+    if idx not in _N_SM:
+        props = torch.cuda.get_device_properties(idx)
+        _N_SM[idx] = props.multi_processor_count
+    return _N_SM[idx]
+
+
+def stacked_plan(n: int, c: int, n_sm: int):
+    """``(split, lanes)`` of the card-only launch over ``n`` slabs x ``c``
+    query rows: its grid is ``c x split`` blocks of 256 threads (each
+    stages its column's query once), and ``lanes`` threads share a pair.
+
+    From the shapes and the SM count alone, never the data: enough blocks
+    for two waves at 8 resident blocks an SM, but no more than one block
+    per 64 of a column's pairs; then 8 lanes a pair where that still
+    leaves each of the block's 32 pair groups two pairs or more (a group
+    loads its next pair's meta while it works on one), else a warp."""
+    split = max(1, min(-(-2 * 8 * n_sm // max(c, 1)), -(-n // 64), 65535))
+    return split, (8 if 2 * split * 32 <= n else 32)
+
+
 def intersect_dispatch_cuda(a: torch.Tensor, b: torch.Tensor,
                             meta: torch.Tensor, *,
                             entry: str = "intersect_dispatch",
                             want_hits: bool = True):
-    """Launch the dispatch kernel over ``R = a.shape[0]`` pairs.
+    """Launch a dispatch kernel over ``R = a.shape[0]`` pairs.
 
     a: int16[R, 4096]; b: int16[Rb, 4096] with ``R % Rb == 0`` — pair ``r``
     reads b row ``r % Rb`` (Rb = R for key-aligned pairs, Rb = C for a
     query shared by every slab of a stack); meta: i32[6R]. Returns
     ``(hits int16[R, 4096] or None, card i32[R])``; ``entry`` names the
-    launch counter.
+    launch counter. With ``want_hits`` the key-aligned kernel runs (one
+    block per pair); without, the card-only kernel (8 or 32 lanes a pair, the
+    query's rows staged once per block; ``stacked_plan``), which reads the
+    b-side fields (kind_b, card_b, nruns_b) of pair ``r % Rb`` for every
+    pair of that column, as ``ops.stacked_and_card`` builds them.
     """
     _check(a, torch.int16, "a")
     _check(b, torch.int16, "b")
@@ -133,12 +166,19 @@ def intersect_dispatch_cuda(a: torch.Tensor, b: torch.Tensor,
     if Rb == 0 or R % Rb or meta.numel() != D.META_FIELDS * R:
         raise ValueError(f"bad shapes: a {tuple(a.shape)}, b "
                          f"{tuple(b.shape)}, meta {tuple(meta.shape)}")
-    hits = (torch.empty((R, D.ROW_WORDS), dtype=torch.int16, device=a.device)
-            if want_hits else None)
     card = torch.empty((R,), dtype=torch.int32, device=a.device)
-    err = _lib().roaring_intersect_dispatch(
-        _ptr(a), _ptr(b), _ptr(meta), _ptr(hits), _ptr(card), R, Rb,
-        _stream(a))
+    if want_hits:
+        hits = torch.empty((R, D.ROW_WORDS), dtype=torch.int16,
+                           device=a.device)
+        err = _lib().roaring_intersect_dispatch(
+            _ptr(a), _ptr(b), _ptr(meta), _ptr(hits), _ptr(card), R, Rb,
+            _stream(a))
+    else:
+        hits = None
+        split, lanes = stacked_plan(R // Rb, Rb, _n_sm(a.device))
+        err = _lib().roaring_stacked_card(
+            _ptr(a), _ptr(b), _ptr(meta), _ptr(card), R // Rb, Rb, split,
+            lanes, _stream(a))
     _build.raise_on(err, entry)
     launch_counts[entry] += 1
     return hits, card

@@ -303,9 +303,11 @@ def _check_backend_scope_names_and_nesting():
 
 def _check_cuda_wrappers_refuse_cpu_tensors(rows):
     A, B, meta = pair_grid(rows, CASES[:2], CASES[:2])
-    with pytest.raises(ValueError, match="CUDA tensor"):
-        TK.intersect_dispatch_cuda(to_t16(A), to_t16(B),
-                                   torch.from_numpy(meta))
+    for want_hits in (True, False):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            TK.intersect_dispatch_cuda(to_t16(A), to_t16(B),
+                                       torch.from_numpy(meta),
+                                       want_hits=want_hits)
     tags = torch.zeros(2 * A.shape[0], dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA tensor"):
         TK.container_op_cuda(to_t16(A), to_t16(B), tags, "and")
@@ -314,7 +316,23 @@ def _check_cuda_wrappers_refuse_cpu_tensors(rows):
     assert {"container_op", "array_intersect"} <= set(TK.launch_counts)
 
 
+def _check_stacked_plan_fills_the_card():
+    """The card-only launch's grid split and lanes a pair come from shapes
+    alone: the search's 2049 x 135 grid and the store's 24 x 916 sum_ fill
+    the 132 SMs of an H100, and a group of lanes short of a warp walks two
+    pairs or more."""
+    for n, c in [(2049, 135), (24, 916), (3, 916), (1, 1), (300, 9),
+                 (13, 7), (100_000, 1), (64, 4096)]:
+        split, lanes = TK.stacked_plan(n, c, 132)
+        assert 1 <= split <= min(65535, max(1, -(-n // 64)))
+        assert lanes in (8, 32)
+        assert lanes == 32 or 2 * split * 32 <= n
+    for (n, c), want in {(2049, 135): (16, 8), (24, 916): (1, 32)}.items():
+        assert TK.stacked_plan(n, c, 132) == want and c * want[0] >= 132
+
+
 def test_entry_point_plumbing(rows):
     _check_launch_hooks_fire_before_the_fault_hook(rows)
     _check_backend_scope_names_and_nesting()
     _check_cuda_wrappers_refuse_cpu_tensors(rows)
+    _check_stacked_plan_fills_the_card()

@@ -18,8 +18,10 @@ if not torch.cuda.is_available():
     pytest.skip("needs an NVIDIA card (run on the chip)",
                 allow_module_level=True)
 
-from _torch_parity import (KIND_CASES, case_rows, cuda,  # noqa: F401,E402
-                           pair_grid, to_t16)
+from _torch_parity import (KIND_CASES, case_rows, container_row,  # noqa
+                           cuda, pair_grid, to_t16)
+from repro_torch.kernels.roaring.dispatch import (  # noqa: E402
+    KIND_ARRAY, KIND_BITMAP, KIND_RUN)
 from repro_torch import search  # noqa: E402
 from repro_torch.kernels.roaring import fused as TF  # noqa: E402
 from repro_torch.kernels.roaring import kernel as TK  # noqa: E402
@@ -55,6 +57,91 @@ def test_dispatch_kernel_every_kind_pair_and_shared_query(pairs, cuda):
     got = TOPS.stacked_and_card(A.reshape(N, C, -1).to(cuda), q.to(cuda),
                                 m.reshape(N, 6 * C).to(cuda))
     assert torch.equal(got.cpu(), want)
+
+
+def _run_row(n_runs):
+    """A run row of ``n_runs`` runs of 16 values, 32 apart (2,048 runs is
+    the most a row holds)."""
+    row = np.full(4096, 0xFFFF, np.uint16)
+    row[0:2 * n_runs:2] = 32 * np.arange(n_runs)
+    row[1:2 * n_runs:2] = 15
+    return KIND_RUN, 16 * n_runs, n_runs, row
+
+
+def _stack(rows, names_a, query_names, N, rng, dead_a=()):
+    """N slabs x C columns against one query: column c's query row is
+    ``query_names[c]``; each pair's a-side a random row of ``names_a``
+    (EMPTY in the columns ``dead_a``). Returns (A int16[N, C, 4096], query
+    int16[C, 4096], meta i32[N, 6C])."""
+    C = len(query_names)
+    pick = rng.integers(0, len(names_a), size=(N, C))
+    A = np.empty((N, C, 4096), np.uint16)
+    meta = np.empty((N, C, 6), np.int32)
+    for c, qn in enumerate(query_names):
+        kq, cq, rq, _ = rows[qn]
+        for n in range(N):
+            ka, ca, ra, da = rows["empty" if c in dead_a
+                                  else names_a[pick[n, c]]]
+            A[n, c] = da
+            meta[n, c] = (ka, kq, ca, cq, ra, rq)
+    q = np.stack([rows[qn][3] for qn in query_names])
+    return to_t16(A), to_t16(q), torch.from_numpy(meta.reshape(N, 6 * C))
+
+
+@pytest.mark.parametrize("lanes", [None, 8, 32])
+@pytest.mark.parametrize("shape", ["300x9 every query kind", "3x200",
+                                   "13x7", "40x5 dead columns"])
+def test_stacked_card_schedule_matches_plain_version(shape, lanes, cuda,
+                                                     monkeypatch):
+    """The card-only kernel (8 or 32 lanes a pair, the query staged once per
+    block) at the search's N >> C, the store's N << C, N * C off a multiple
+    of the block's pair groups and all-dead columns, with the lanes its
+    plan picks (None) and with each instantiation forced: bit for bit
+    against the plain version."""
+    if lanes is not None:
+        plan = TK.stacked_plan
+        monkeypatch.setattr(TK, "stacked_plan", lambda n, c, sm: (
+            plan(n, c, sm)[0], lanes))
+    rng = np.random.default_rng(SEED)
+    rows = case_rows(rng)
+    rows["run_2048"] = _run_row(2048)
+    kinds = sorted(rows)                 # every kind, empty and 2048 runs
+    dead = ()
+    if shape == "300x9 every query kind":
+        N, cols = 300, [k for k in kinds if k != "empty"]
+    elif shape == "3x200":
+        N, cols = 3, [kinds[i % len(kinds)] for i in range(200)]
+    elif shape == "13x7":
+        N, cols = 13, kinds[:7]
+    else:                                # an empty query; an all-empty a side
+        N, cols, dead = 40, ["empty", "bitmap_dense", "run_2048",
+                             "array_small", "run_full"], (1, 3)
+    A, q, m = _stack(rows, kinds, cols, N, rng, dead)
+    want = TOPS.stacked_and_card(A, q, m)
+    got = TOPS.stacked_and_card(A.to(cuda), q.to(cuda), m.to(cuda))
+    assert torch.equal(got.cpu(), want)
+    assert bool((want > 0).any())
+
+
+def test_dispatch_hits_at_card_boundaries(cuda):
+    """The key-aligned kernel's hits rows where the array side fills its
+    last 16-byte chunk (4,096 values) or stops one slot short (4,095),
+    against arrays, a 4,097-value bitmap and runs, both ways round."""
+    rng = np.random.default_rng(SEED)
+    vals = np.sort(rng.choice(1 << 16, 4097, replace=False))
+    rows = {"a4096": container_row(vals[:4096]),
+            "a4095": container_row(vals[1:4096]),
+            "b4097": container_row(vals),
+            "r_full": container_row(np.arange(1 << 16)),
+            "r_2048": _run_row(2048)}
+    assert [rows[k][:2] for k in ("a4096", "a4095", "b4097")] == [
+        (KIND_ARRAY, 4096), (KIND_ARRAY, 4095), (KIND_BITMAP, 4097)]
+    A, B, meta = pair_grid(rows, list(rows), list(rows))
+    A, B, meta = to_t16(A), to_t16(B), torch.from_numpy(meta)
+    ht, ct = TR.intersect_dispatch_ref(A, B, meta)
+    hk, ck = TK.intersect_dispatch_cuda(A.to(cuda), B.to(cuda), meta.to(cuda))
+    assert torch.equal(hk.cpu(), ht) and torch.equal(ck.cpu(), ct)
+    assert int(ct.max()) == 1 << 16 and 4096 in ct.tolist()
 
 
 TREES = [0, ("and", 0, 1), ("or", 0, 1, 2), ("andnot", 0, 1),
