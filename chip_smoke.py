@@ -437,7 +437,8 @@ def check_kernels(torch, cases, K, ops, ref, F, seed):
     """Every kernel against its plain version on seeded rows covering all
     nine pair classes, dead pairs, the 4095/4096/4097 boundaries, runs
     ending at 65535, a run covering the chunk, stacked N*C grids, fused
-    trees of depth 1-5 and a plan too large for shared memory."""
+    trees of depth 1-5 and a 31-slot plan at every launch shape, and a
+    61-slot and a 64-operand plan too large for shared memory."""
     rng = np.random.default_rng(seed)
     rows = cases.case_rows(rng)
     names = list(rows)
@@ -487,21 +488,51 @@ def check_kernels(torch, cases, K, ops, ref, F, seed):
              ("or", ("and", 0, ("andnot", 1, 2)), ("andnot", 3, ("or", 0, 2))),
              ("and", ("or", ("andnot", ("and", 0, 1), 2), 3),
               ("or", 1, ("andnot", 3, ("and", 0, 2))))]
-    deep = 3
-    for i in range(30):
-        deep = (("and", "or", "andnot")[i % 3], i % 4, deep)
-    trees.append(deep)
-    smem_slots = K.fused_max_smem_slots(fops.device)
+    trees += [_deep_tree(30), _deep_tree(60)]
+    smem = K.fused_smem(fops.device)
+    shapes = {}
     for tree in trees:
         plan = F.plan_tape(tree)
-        bk, ck = K.fused_eval_cuda(fops.contiguous(), lm, plan)
-        bp, cp = F.fused_eval_ref(fops.contiguous(), lm, plan=plan)
-        _same(f"fused_tree {plan.n_slots} slots", (bk, ck), (bp, cp))
-    if F.plan_tape(deep).n_slots <= smem_slots:
-        raise AssertionError("the deep plan should exceed shared memory")
-    log(f"check fused_tree: {len(trees)} trees (depth 1-5, and/or/andnot; "
-        f"a {F.plan_tape(deep).n_slots}-slot plan beyond the {smem_slots} "
-        "slots shared memory holds) bit-identical")
+        want = F.fused_eval_ref(fops.contiguous(), lm, plan=plan)
+        for shape in K.fused_shapes(len(F.kernel_program(plan)[0]),
+                                    plan.n_slots, smem[0]):
+            got = K.fused_eval_cuda(fops.contiguous(), lm, plan, shape=shape)
+            _same(f"fused_tree {plan.n_slots} slots at {shape}", got, want)
+        shapes[plan.n_slots] = K.fused_launch_shape(
+            len(F.kernel_program(plan)[0]), plan.n_slots, *smem)
+    # more distinct operands than one block's shared memory holds
+    Nw = 64
+    pick = rng.integers(0, A.shape[0], size=(Nw, Cf))
+    rowsel = torch.from_numpy(pick).cuda()
+    wops = A[rowsel].contiguous()
+    wkind = fm[rowsel, 0].clone()
+    wkind[:, -1] = 0                                     # a dead column
+    wm = F.pack_lift_meta(wkind, fm[rowsel, 2], fm[rowsel, 4])
+    wide = F.plan_tape(("or", ("and", 0, 1),
+                        *[(("and", "andnot")[i % 2], i, i + 1)
+                          for i in range(2, Nw - 1)]))
+    wshape = K.fused_launch_shape(Nw, wide.n_slots, *smem)
+    _same("fused_tree, 64 operands", K.fused_eval_cuda(wops, wm, wide),
+          F.fused_eval_ref(wops, wm, plan=wide))
+    if not shapes[31][2] or shapes[61][2] or wshape[2]:
+        raise AssertionError(f"fused launch shapes {shapes}, {wshape}: the "
+                             "31-slot plan should run in shared memory, "
+                             "the 61-slot and 64-operand plans in global "
+                             "scratch")
+    log(f"check fused_tree: {len(trees)} trees (depth 1-5, and/or/andnot) "
+        "at every launch shape the kernel is built for, and a 64-operand "
+        "plan, bit-identical; (split, stack rows, in shared memory): "
+        f"{shapes} by slots, {wshape} for 64 operands "
+        f"({smem[0]} B of shared memory a block, {smem[1]} an SM)")
+
+
+def _deep_tree(depth):
+    """A right-nested tree of ``depth`` ops over operands 0-3: ``depth +
+    1`` slots."""
+    tree = 3
+    for i in range(depth):
+        tree = (("and", "or", "andnot")[i % 3], i % 4, tree)
+    return tree
 
 
 def _same(what, got, want):
@@ -756,6 +787,11 @@ def kernel_rows(torch, K, ref, F, launches, captured, regs):
         "stacked_card_kernel (card only) at 8 / 32 lanes a pair: "
         + "; ".join(kernel_regs(regs, f"stacked_card_kernelILi{g}E")
                     for g in (8, 32)))
+    log("fused_eval_kernel at split 1 / split 2 / global scratch: "
+        + "; ".join(kernel_regs(regs, f"fused_eval_kernelILi256ELi{v}ELb{b}")
+                    for v, b in ((2, 1), (1, 1), (2, 0)))
+        + "; array_intersect_kernel: "
+        + kernel_regs(regs, "array_intersect_kernel"))
     # per-op AND combine: hits + card
     live, (a, b, meta), kw = captured["intersect_dispatch"]
     hk, ck = K.intersect_dispatch_cuda(a, b, meta)
@@ -957,13 +993,14 @@ def ssb_queries(ST):
     }
 
 
-def store_path(torch, ST, K, ref, pr, FS, sf, seed, device="cuda"):
+def store_path(torch, ST, K, ref, F, pr, FS, sf, seed, device="cuda"):
     """SSB LINEORDER as a bitmap index on the card: build, the Q1 flight
     fused and per-op (count, rows, sum of lo_extendedprice) against a numpy
     row filter of the same records, each ``sum_`` launch of the card-only
-    kernel against its plain version, a closed-loop fused count rate per
-    query, and a save -> load(check=True) -> save round trip. Returns the
-    store and its records."""
+    kernel and each query's fused launch against its plain version, a
+    closed-loop fused count rate per query, and a save -> load(check=True)
+    -> save round trip. Returns the store, its records and the fused
+    launches' readings (``store_fused_rows``)."""
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     card = card_line() if device == "cuda" else device
     t = time.perf_counter()
@@ -994,19 +1031,25 @@ def store_path(torch, ST, K, ref, pr, FS, sf, seed, device="cuda"):
         return out
 
     sums = []                      # each sum_ launch as the kernel got it
-    launch = K.intersect_dispatch_cuda
+    first_fused = {}               # each query's first fused launch
+    launch, fused_launch = K.intersect_dispatch_cuda, K.fused_eval_cuda
 
     def capture(a, b, meta, **kw):
         if not kw.get("want_hits", True):
             sums.append((a, b, meta, dict(kw)))
         return launch(a, b, meta, **kw)
+
+    def capture_fused(ops_, meta, plan, **kw):
+        first_fused.setdefault(name, (ops_, meta, plan))
+        return fused_launch(ops_, meta, plan, **kw)
     K.intersect_dispatch_cuda = capture
+    K.fused_eval_cuda = capture_fused
     try:
         for name, (pred, _) in queries.items():
             answers[name], per_query[name] = _store_answers(
                 K, store, name, pred, timed)
     finally:
-        K.intersect_dispatch_cuda = launch
+        K.intersect_dispatch_cuda, K.fused_eval_cuda = launch, fused_launch
     launches = dict(K.launch_counts)
     for name, (_, mask) in queries.items():
         ids = np.nonzero(mask(records))[0]
@@ -1038,8 +1081,10 @@ def store_path(torch, ST, K, ref, pr, FS, sf, seed, device="cuda"):
             raise AssertionError(f"kernel {name} never launched on the "
                                  "store path")
     log(f"launches on the store path: {launches}")
+    fused_rows = []
     if device == "cuda":
         check_sums(torch, K, ref, sums, card)
+        fused_rows = store_fused_rows(torch, K, F, first_fused, card)
     for name, (pred, _) in queries.items():
         n, t = 0, time.perf_counter()
         while time.perf_counter() - t < SSB_RATE_S:
@@ -1078,7 +1123,7 @@ def store_path(torch, ST, K, ref, pr, FS, sf, seed, device="cuda"):
     log(f"save {len(blob)} bytes in {t_save:.1f} s; load(check=True, "
         f"max_stack_cells={cells}) in {t_load:.1f} s re-saves "
         f"byte-identically; plan cache {stats}")
-    return store, records
+    return store, records, fused_rows
 
 
 def _store_answers(K, store, name, pred, timed):
@@ -1125,6 +1170,40 @@ def check_sums(torch, K, ref, sums, card):
         f"it) ({card})")
 
 
+def store_fused_rows(torch, K, F, fused, card):
+    """Each SSB query's fused launch (its operand rows, meta and plan as
+    the kernel got them) against its plain version bit for bit, timed warm
+    and with L2 flushed, beside the plain version and its bound: one
+    reading a query, logged and returned."""
+    flush = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device="cuda")
+    out = []
+    for name, (o, lm, plan) in fused.items():
+        got = K.fused_eval_cuda(o, lm, plan)
+        err = _max_err(torch, got, F.fused_eval_ref(o, lm, plan=plan))
+        call = lambda: K.fused_eval_cuda(o, lm, plan)  # noqa: E731
+        ms, cold = time_ms(torch, call, 20), time_cold_ms(torch, call, 10,
+                                                          flush)
+        pms = enqueue_time_ms(torch, lambda: F.fused_eval_ref(
+            o, lm, plan=plan), 2)
+        bound = fused_bound(lm.cpu().numpy(), plan.n_ops, o.shape[0],
+                            o.shape[1])
+        lifts = len(F.kernel_program(plan)[0])
+        shape = K.fused_launch_shape(lifts, plan.n_slots,
+                                     *K.fused_smem(o.device))
+        n_live = int((lm[3 * o.shape[0] * o.shape[1]:] != 0).sum())
+        log(f"store fused_tree {name}: {ms:.4f} ms warm, {cold:.4f} ms "
+            f"cold L2 (plain {pms:.3f} ms, bound {bound[0]:.4f} ms by "
+            f"{bound[1]}, {100 * bound[0] / ms:.1f} % of it warm) at "
+            f"{o.shape[0]} operands ({lifts} distinct) x {o.shape[1]} "
+            f"columns ({n_live} live), {plan.n_loads} loads and "
+            f"{plan.n_ops} word ops in {plan.n_slots} slots; (split, stack "
+            f"rows, in shared memory) {shape}; bit-identical ({card})")
+        out.append({"query": name, "max_abs_err": err, "ms": ms,
+                    "cold_ms": cold, "plain_ms": pms, "bound_ms": bound[0],
+                    "bound_by": bound[1]})
+    return out
+
+
 def _plain_chunks(torch, fn, n, chunk=32768):
     """A plain version over ``n`` rows in row chunks (its intermediates at
     once would not fit beside the store); outputs concatenated."""
@@ -1132,31 +1211,13 @@ def _plain_chunks(torch, fn, n, chunk=32768):
     return tuple(torch.cat(x) for x in zip(*outs))
 
 
-def container_rows(torch, K, ops, ref, tr, store, records):
-    """Both kernels through their entry points at the store's own data, then
-    against their plain versions and timed with CUDA events.
-
-    container_op: A = the posting rows of slabs 2 .. N-2 lifted to the
-    bitmap domain, B = those of slabs 3 .. N-1 (contiguous slices of one
-    lifted tensor). array_intersect: the rows of each lo_yearmonthnum slab
-    against those of the lo_weeknuminyear slab of that month's 15th day, in
-    packed-array form (the store keeps them as run rows where best-of-three
-    says so)."""
+def month_week_arrays(torch, tr, store):
+    """The SSB month x week pairs of the packed-array kernel: the rows of
+    each lo_yearmonthnum slab against those of the lo_weeknuminyear slab of
+    that month's 15th day, in packed-array form (the store keeps them as
+    run rows where best-of-three says so). Returns (A, B int16[80 C, 4096],
+    cards i32[2 * 80 C] interleaved, {month: week}, rows stored as runs)."""
     st = store._stack
-    N, C = st.kinds.shape
-    flat_kind = st.kinds.reshape(-1)
-    flat_card = st.cards.reshape(-1)
-    flat_data = st.payload.reshape(-1, 4096)
-    lifted = torch.empty_like(flat_data)
-    for s in range(0, N * C, 16384):
-        e = min(N * C, s + 16384)
-        lifted[s:e] = tr.narrow(tr._lift_rows(flat_data[s:e],
-                                              flat_card[s:e],
-                                              flat_kind[s:e]))
-    a, b = lifted[2 * C:(N - 1) * C], lifted[3 * C:]
-    tags = torch.stack([flat_kind[2 * C:(N - 1) * C], flat_kind[3 * C:]],
-                       dim=1).reshape(-1).contiguous()
-
     ym = store.column("lo_yearmonthnum")
     wk = store.column("lo_weeknuminyear")
     week_of = {}
@@ -1185,6 +1246,35 @@ def container_rows(torch, K, ops, ref, tr, store, records):
     cards = torch.stack([ca, cb], dim=1).reshape(-1).contiguous()
     n_runs = int((st.kinds[sa] == tr.KIND_RUN).sum() +
                  (st.kinds[sb] == tr.KIND_RUN).sum())
+    return ia, ib, cards.to(torch.int32), week_of, n_runs
+
+
+def container_rows(torch, K, ops, ref, tr, store, records):
+    """Both kernels through their entry points at the store's own data, then
+    against their plain versions and timed with CUDA events.
+
+    container_op: A = the posting rows of slabs 2 .. N-2 lifted to the
+    bitmap domain, B = those of slabs 3 .. N-1 (contiguous slices of one
+    lifted tensor). array_intersect: the month x week pairs of
+    ``month_week_arrays``."""
+    st = store._stack
+    N, C = st.kinds.shape
+    flat_kind = st.kinds.reshape(-1)
+    flat_card = st.cards.reshape(-1)
+    flat_data = st.payload.reshape(-1, 4096)
+    lifted = torch.empty_like(flat_data)
+    for s in range(0, N * C, 16384):
+        e = min(N * C, s + 16384)
+        lifted[s:e] = tr.narrow(tr._lift_rows(flat_data[s:e],
+                                              flat_card[s:e],
+                                              flat_kind[s:e]))
+    a, b = lifted[2 * C:(N - 1) * C], lifted[3 * C:]
+    tags = torch.stack([flat_kind[2 * C:(N - 1) * C], flat_kind[3 * C:]],
+                       dim=1).reshape(-1).contiguous()
+
+    ia, ib, cards, week_of, n_runs = month_week_arrays(torch, tr, store)
+    ym = store.column("lo_yearmonthnum")
+    ca, cb = cards[0::2], cards[1::2]
     torch.cuda.synchronize()
 
     K.reset_launch_counts()
@@ -2057,8 +2147,10 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     regs = ptxas_report(("sparse_attn/csrc/paged_decode.cu",
                          "sparse_attn/csrc/sparse_flash.cu",
-                         "roaring/csrc/intersect_dispatch.cu"))
-    log(f"ptxas report of the attention and dispatch kernels: {len(regs)} "
+                         "roaring/csrc/intersect_dispatch.cu",
+                         "roaring/csrc/fused_eval.cu",
+                         "roaring/csrc/container_ops.cu"))
+    log(f"ptxas report of the attention and roaring kernels: {len(regs)} "
         f"kernels, {time.perf_counter() - t:.1f} s")
     log("kernels: " + json.dumps(list(KERNELS)))
     timer_self_test(torch)
@@ -2077,8 +2169,10 @@ def main(argv=None) -> int:
     log(f"search phases: {time.perf_counter() - t:.1f} s")
 
     t = time.perf_counter()
-    store, records = store_path(torch, ST, K, ref, pr, FS, SSB_SF,
-                                args.seed)
+    store, records, store_fused = store_path(torch, ST, K, ref, F, pr, FS,
+                                             SSB_SF, args.seed)
+    next(r for r in rows if r["name"] == "fused_tree")[
+        "store_launches"] = store_fused
     rows += container_rows(torch, K, ops, ref, tr, store, records)
     del store, records
     gc.collect()

@@ -13,8 +13,8 @@
 // What bounds them on an H100: memory. container_op does one word op and a
 // popcount per 4 bytes read; a live pair moves 2 x 8 kB in and 8 kB out, a
 // dead pair only its 8 kB of zeros. array_intersect reads 2 * (card_a +
-// card_b) bytes and writes the 8 kB mask; its card_a * log2(card_b + 1)
-// compare-and-select steps stay far under the card's integer rate.
+// card_b) bytes and writes the 8 kB mask, which is most of its bytes at
+// the store's cards; its compares stay far under the card's integer rate.
 //
 // What the design does about it:
 //   * container_op streams each row as 16-byte vector loads (512 uint4 per
@@ -23,13 +23,20 @@
 //   * a both-EMPTY pair writes its zeros and exits before reading payload:
 //     the counterpart of the Pallas `skip_dead_rows` DMA skip. One EMPTY
 //     side is live (an OR with nothing still copies the other row);
-//   * array_intersect stages B's card_b values in shared memory (8 kB at
-//     most), so each thread's 13 halvings read shared memory, not HBM, and
-//     reads only A's first card_a values; slots past card_a write 0.
+//   * array_intersect runs one block of 256 threads a pair, and each thread
+//     owns a contiguous span of 16 of A's slots: it loads its span as
+//     16-byte vectors while B's first card_b values come in as 16-byte
+//     vectors too; B's values are set in a 2^16-bit membership
+//     bitmap in shared memory (8 kB, one atomicOr a value), and each of
+//     A's values tests one bit: no search, no data-dependent loop. The hits
+//     go out as 16-byte stores. A span that starts at or past card_a writes
+//     zeros without reading A. (A lower-bound search per span followed by
+//     a merge walk of B was 3-4x slower than the parent's search per slot:
+//     the walk's lanes diverge; PERF.md, section 6.)
 //
 // Values are u16: 0xFFFF is the array padding, and every compare here is on
 // unsigned 16-bit values, so a real 65535 in both arrays is a hit and the
-// padding past card_b is never searched.
+// padding past card_b is never matched (the walk stops at card_b).
 
 #include "roaring_common.cuh"
 
@@ -81,36 +88,81 @@ container_op_kernel(const uint4* __restrict__ a, const uint4* __restrict__ b,
   if (threadIdx.x == 0) card[row] = total;
 }
 
-__global__ void __launch_bounds__(kThreads)
-array_intersect_kernel(const uint16_t* __restrict__ a,
-                       const uint16_t* __restrict__ b,
+// Value s (0-7, a constant once unrolled) of a 16-byte vector of u16.
+__device__ __forceinline__ int vec_value(uint4 q, int s) {
+  const int m = s >> 1;
+  const uint32_t w = m == 0 ? q.x : m == 1 ? q.y : m == 2 ? q.z : q.w;
+  return (int)((w >> (16 * (s & 1))) & 0xFFFFu);
+}
+
+// One block a pair; thread t owns A's slots [kSpan t, kSpan (t + 1)).
+constexpr int kSpan = 16;
+
+__global__ void __launch_bounds__(kRowWords / kSpan)
+array_intersect_kernel(const uint4* __restrict__ a,
+                       const uint4* __restrict__ b,
                        const int32_t* __restrict__ cards,
-                       uint16_t* __restrict__ hits,
+                       uint4* __restrict__ hits,
                        int32_t* __restrict__ count) {
-  __shared__ uint16_t sb[kRowWords];
+  constexpr int T = kRowWords / kSpan;
+  constexpr int kVec = kSpan / 8;            // 16-byte vectors of a span
+  constexpr int kBVec = kRowVec / T;         // B's vectors a thread loads
+  __shared__ uint4 member4[kRowVec];         // B as a 2^16-bit bitmap
   const long long row = blockIdx.x;
   const int card_a = clamp_int(cards[2 * row], 0, kRowWords);
   const int card_b = clamp_int(cards[2 * row + 1], 0, kRowWords);
-  stage_u16(sb, b + row * kRowWords, card_b);
-  __syncthreads();
-  const uint16_t* arow = a + row * kRowWords;
-  uint16_t* hrow = hits + row * kRowWords;
-  int n = 0;
-  for (int i = threadIdx.x; i < kRowWords; i += kThreads) {
-    uint16_t hit = 0;
-    if (i < card_a) {
-      const uint16_t v = arow[i];
-      int lo = 0, hi = card_b;              // lower bound in sb[0, card_b)
-      while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (sb[mid] < v) lo = mid + 1; else hi = mid;
-      }
-      hit = (lo < card_b && sb[lo] == v) ? 1 : 0;
-    }
-    hrow[i] = hit;
-    n += hit;
+  const int first = threadIdx.x * kSpan;
+  const bool live = first < card_a;
+  uint4 av[kVec], bv[kBVec];
+  if (live) {                      // A's and B's loads fly together
+    const uint4* arow = a + row * kRowVec + threadIdx.x * kVec;
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) av[k] = __ldg(arow + k);
   }
-  const int total = block_sum(n);
+  const uint4* brow = b + row * kRowVec;
+#pragma unroll
+  for (int k = 0; k < kBVec; ++k) {
+    const int i = threadIdx.x + k * T;
+    if (8 * i < card_b) bv[k] = __ldg(brow + i);
+  }
+#pragma unroll
+  for (int k = 0; k < kBVec; ++k)
+    member4[threadIdx.x + k * T] = make_uint4(0, 0, 0, 0);
+  __syncthreads();
+  uint32_t* member = reinterpret_cast<uint32_t*>(member4);
+#pragma unroll
+  for (int k = 0; k < kBVec; ++k) {
+    const int i = threadIdx.x + k * T;
+#pragma unroll
+    for (int s = 0; s < 8; ++s) {
+      if (8 * i + s < card_b) {
+        const int v = vec_value(bv[k], s);
+        atomicOr(member + (v >> 5), 1u << (v & 31));
+      }
+    }
+  }
+  __syncthreads();
+
+  uint32_t hw[kSpan / 2];
+#pragma unroll
+  for (int k = 0; k < kSpan / 2; ++k) hw[k] = 0;
+  int n = 0;
+#pragma unroll
+  for (int s = 0; s < kSpan; ++s) {
+    if (live && first + s < card_a) {
+      const int v = vec_value(av[s >> 3], s & 7);
+      if ((member[v >> 5] >> (v & 31)) & 1u) {
+        hw[s >> 1] |= 1u << (16 * (s & 1));
+        ++n;
+      }
+    }
+  }
+  uint4* hrow = hits + row * kRowVec + threadIdx.x * kVec;
+#pragma unroll
+  for (int k = 0; k < kVec; ++k)
+    hrow[k] = make_uint4(hw[4 * k], hw[4 * k + 1], hw[4 * k + 2],
+                         hw[4 * k + 3]);
+  const int total = block_sum<T>(n);
   if (threadIdx.x == 0) count[row] = total;
 }
 
@@ -157,10 +209,10 @@ extern "C" int roaring_array_intersect(const void* a, const void* b,
                                        void* count, long long n_rows,
                                        void* stream) {
   if (n_rows > 0) {
-    array_intersect_kernel<<<(unsigned)n_rows, kThreads, 0,
+    array_intersect_kernel<<<(unsigned)n_rows, kRowWords / kSpan, 0,
                              (cudaStream_t)stream>>>(
-        static_cast<const uint16_t*>(a), static_cast<const uint16_t*>(b),
-        static_cast<const int32_t*>(cards), static_cast<uint16_t*>(hits),
+        static_cast<const uint4*>(a), static_cast<const uint4*>(b),
+        static_cast<const int32_t*>(cards), static_cast<uint4*>(hits),
         static_cast<int32_t*>(count));
   }
   return (int)cudaGetLastError();

@@ -15,7 +15,7 @@ namespace roaring {
 constexpr int kRowWords = 4096;   // u16 words per row
 constexpr int kRowU32 = 2048;     // the same row as u32 words
 constexpr int kMaxRuns = 2048;    // (start, length-1) pairs per row
-constexpr int kThreads = 256;     // block size of every kernel here
+constexpr int kThreads = 256;     // default block size of the kernels here
 
 constexpr int KIND_EMPTY = 0;
 constexpr int KIND_ARRAY = 1;
@@ -70,13 +70,6 @@ __device__ __forceinline__ int block_sum(int v) {
     for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xFFFFFFFFu, v, o);
   }
   return v;
-}
-
-// Copy the first n u16 of a global row into shared memory.
-__device__ __forceinline__ void stage_u16(uint16_t* dst,
-                                          const uint16_t* __restrict__ src,
-                                          int n) {
-  for (int i = threadIdx.x; i < n; i += kThreads) dst[i] = src[i];
 }
 
 }  // namespace roaring

@@ -19,8 +19,9 @@ evaluator instead replays a whole tree per container column:
     ``torch_roaring._finalize_rows``.
 
 ``fused_eval_ref`` is the plain-torch version (same tape, batched lifts);
-the CUDA kernel (``csrc/fused_eval.cu``) reads the tape as runtime data
-(``encode_tape``), so one compiled kernel serves every tree shape.
+the CUDA kernel (``csrc/fused_eval.cu``) reads a program derived from the
+tape as runtime data (``kernel_program`` / ``encode_program``), so one
+compiled kernel serves every tree shape.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ ROW_WORDS = D.ROW_WORDS
 __all__ = [
     "FusedPlan", "plan_tape", "plan_stats",
     "fused_eval_ref", "encode_tape", "TAPE_OPCODES",
+    "kernel_program", "encode_program", "PROGRAM_PAD",
     "LIFT_META_FIELDS", "pack_lift_meta",
 ]
 
@@ -155,6 +157,102 @@ def encode_tape(plan: FusedPlan, device) -> torch.Tensor:
         t = torch.tensor(_tape_rows(plan), dtype=torch.int32,
                          device=device).reshape(-1, 4)
         _TAPES[key] = t
+    return t
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_program(plan: FusedPlan):
+    """The CUDA kernel's program for ``plan``: ``(lifts, steps)``.
+
+    ``lifts`` are the plan's distinct operands in the order of their first
+    load; the kernel lifts each once per column, into row ``x`` for
+    ``lifts[x]``. ``steps`` replay the tape over a stack whose top the
+    kernel keeps in registers, one ``(code, idx)`` pair each, with ``code =
+    op | from_row << 2 | (spill + 1) << 3`` and ``op`` the tape opcode:
+
+      * load (op 0, from_row 1): spill the top to stack slot ``spill`` (-1:
+        the stack is empty), then the top = lifted row ``idx``;
+      * a load folded into the op that follows it (from_row 1): the top =
+        top op lifted row ``idx``;
+      * an op on a subtree's result (from_row 0): the top = stack slot
+        ``idx`` op top.
+
+    The root ends in the top. Raises ``ValueError`` for a tape that is not
+    the stack program ``plan_tape`` emits."""
+    lifts: list = []
+    row_of: dict = {}
+    steps: list = []
+    tape, height, i = plan.tape, 0, 0
+    while i < len(tape):
+        step = tape[i]
+        if step[0] == "load":
+            _, n, dst = step
+            if dst != height:
+                raise ValueError(f"load into slot {dst} at height {height}")
+            if n not in row_of:
+                row_of[n] = len(lifts)
+                lifts.append(n)
+            nxt = tape[i + 1] if i + 1 < len(tape) else None
+            if nxt is not None and nxt[0] != "load" and nxt[1:] == (
+                    dst - 1, dst, dst - 1):
+                steps.append((TAPE_OPCODES[nxt[0]] | 4, row_of[n]))
+                i += 2
+                continue
+            steps.append((4 | (dst << 3), row_of[n]))      # spill dst - 1
+            height += 1
+        else:
+            op, a, b, dst = step
+            if (a, b, dst) != (height - 2, height - 1, height - 2):
+                raise ValueError(f"op {step} at height {height}")
+            steps.append((TAPE_OPCODES[op], a))
+            height -= 1
+        i += 1
+    if height != 1:
+        raise ValueError(f"the tape leaves {height} values, not one")
+    return tuple(lifts), tuple(steps)
+
+
+# step masks (c1, c2, c3) of the kernel's word op top = (top & c1) ^ (y &
+# c2) ^ (top & y & c3), y the step's operand: per (op, from_row)
+_STEP_MASKS = {(0, 1): 0b010,                       # load: y
+               (1, 1): 0b100, (1, 0): 0b100,        # and
+               (2, 1): 0b111, (2, 0): 0b111,        # or: t ^ y ^ ty
+               (3, 1): 0b101,                       # top andnot row
+               (3, 0): 0b110}                       # slot andnot top
+PROGRAM_PAD = 2        # trailing steps the kernel prefetches but never runs
+
+_PROGRAMS: dict = {}
+
+
+def encode_program(plan: FusedPlan, part_vec: int, device):
+    """``kernel_program(plan)`` as the kernel reads it, for rows of
+    ``part_vec`` 16-byte vectors: ``(lifts i32[D], steps i32[P + 2,
+    4])``. A step is ``(masks, operand, spill, 0)``: ``masks`` the bits
+    (c1, c2, c3) of the word op ``top = (top & c1) ^ (y & c2) ^ (top & y
+    & c3)`` with y the 16-byte vectors at byte offset ``operand``, and
+    ``spill`` the byte offset the top is stored to first (-1: none).
+    Offsets count from the block's scratch base, laid out as D tags of 16
+    bytes, then the D lifted rows, then the stack rows. The last
+    ``PROGRAM_PAD`` steps are padding the kernel loads ahead but never
+    runs. Cached per (plan, part_vec, device)."""
+    key = (plan, part_vec, str(torch.device(device)))
+    t = _PROGRAMS.get(key)
+    if t is None:
+        lifts, steps = kernel_program(plan)
+        n = len(lifts)
+
+        def offset(from_row, idx):
+            return 16 * (n + (idx if from_row else n + idx) * part_vec)
+
+        rows = []
+        for code, idx in steps:
+            op, from_row, spill = code & 3, (code >> 2) & 1, (code >> 3) - 1
+            rows.append((_STEP_MASKS[op, from_row], offset(from_row, idx),
+                         offset(0, spill) if spill >= 0 else -1, 0))
+        rows += [(0, 0, -1, 0)] * PROGRAM_PAD
+        t = (torch.tensor(lifts, dtype=torch.int32, device=device),
+             torch.tensor(rows, dtype=torch.int32, device=device))
+        _PROGRAMS[key] = t
     return t
 
 

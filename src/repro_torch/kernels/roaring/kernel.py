@@ -12,7 +12,7 @@ where it launches, and nowhere else.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -22,8 +22,9 @@ from . import fused as F
 
 __all__ = ["and_table_source", "launch_counts",
            "reset_launch_counts", "intersect_dispatch_cuda", "stacked_plan",
-           "fused_eval_cuda", "fused_max_smem_slots", "container_op_cuda",
-           "array_intersect_cuda", "CONTAINER_OPS"]
+           "fused_eval_cuda", "fused_launch_shape", "fused_shapes",
+           "fused_smem", "container_op_cuda", "array_intersect_cuda",
+           "CONTAINER_OPS"]
 
 # row-kernel ids of the CUDA cell switch (RK_* in and_table.inc)
 _KERNEL_IDS = {"gallop": 1, "probe": 2, "word_and": 3, "run_gallop": 4,
@@ -82,11 +83,11 @@ def _lib() -> ctypes.CDLL:
             ctypes.c_int, ctypes.c_int, _P]
         lib.roaring_stacked_card.restype = ctypes.c_int
         lib.roaring_fused_eval.argtypes = [
-            _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, _P, _P, _P, _P]
+            _P, _P, _P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P]
         lib.roaring_fused_eval.restype = ctypes.c_int
-        lib.roaring_fused_max_smem_slots.argtypes = []
-        lib.roaring_fused_max_smem_slots.restype = ctypes.c_int
+        lib.roaring_fused_smem.argtypes = [_P, _P]
+        lib.roaring_fused_smem.restype = ctypes.c_int
         lib.roaring_container_op.argtypes = [
             _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P]
         lib.roaring_container_op.restype = ctypes.c_int
@@ -184,24 +185,68 @@ def intersect_dispatch_cuda(a: torch.Tensor, b: torch.Tensor,
     return hits, card
 
 
-_MAX_SLOTS: Dict[int, int] = {}
+_SMEM: Dict[int, Tuple[int, int]] = {}
 
 
-def fused_max_smem_slots(device) -> int:
-    """Most fused-plan slots that fit in one block's shared memory."""
+def fused_smem(device) -> Tuple[int, int]:
+    """(bytes a fused block can take beside its static shared memory,
+    shared memory bytes per SM) on ``device``."""
     idx = torch.device(device).index or 0
-    if idx not in _MAX_SLOTS:
+    if idx not in _SMEM:
+        block, sm = ctypes.c_int(0), ctypes.c_int(0)
         with torch.cuda.device(idx):
-            _MAX_SLOTS[idx] = _lib().roaring_fused_max_smem_slots()
-    return _MAX_SLOTS[idx]
+            if not _lib().roaring_fused_smem(ctypes.byref(block),
+                                             ctypes.byref(sm)):
+                raise RuntimeError("fused_tree: cannot read the device's "
+                                   "shared memory sizes")
+        _SMEM[idx] = (block.value, sm.value)
+    return _SMEM[idx]
+
+
+def _fused_block_bytes(n_lifts: int, stack: int, split: int) -> int:
+    """Dynamic shared memory of a fused block: 16 bytes of tags an operand,
+    then the lifted rows and the stack, 8 kB / ``split`` a row."""
+    return 16 * n_lifts + (n_lifts + stack) * 2 * D.ROW_WORDS // split
+
+
+def fused_shapes(n_lifts: int, n_slots: int,
+                 smem_block: int) -> Tuple[Tuple[int, int, bool], ...]:
+    """Every ``(split, stack_rows, in_smem)`` the fused kernel is built for
+    that a plan of ``n_lifts`` distinct operands and ``n_slots`` slots can
+    take: split 1 or 2 in shared memory where its tags, lifted rows and
+    stack (``n_slots - 1`` rows, at least ``split``: the stack's first 8 kB
+    stage packed values) fit a block, and split 1 in global scratch."""
+    out = []
+    for split in (1, 2):
+        stack = max(n_slots - 1, split)
+        if _fused_block_bytes(n_lifts, stack, split) <= smem_block:
+            out.append((split, stack, True))
+    return tuple(out) + ((1, max(n_slots - 1, 1), False),)
+
+
+def fused_launch_shape(n_lifts: int, n_slots: int, smem_block: int,
+                       smem_sm: int) -> Tuple[int, int, bool]:
+    """``(split, stack_rows, in_smem)`` of a fused launch over ``n_lifts``
+    distinct operands and a plan of ``n_slots`` slots, from those shapes
+    and the device's shared memory alone: a block owns its column's whole
+    row while two such blocks fit an SM (split 1); else half of it, in a
+    cluster of two (split 2, half the shared memory a block); a plan that
+    does not fit even so keeps its rows in global scratch."""
+    stack = max(n_slots - 1, 1)
+    # the SM keeps 1 kB of its shared memory for each resident block
+    if 2 * (_fused_block_bytes(n_lifts, stack, 1) + 1024) <= smem_sm:
+        return 1, stack, True
+    return next(s for s in fused_shapes(n_lifts, n_slots, smem_block)
+                if s[0] == 2 or not s[2])
 
 
 def fused_eval_cuda(ops: torch.Tensor, meta: torch.Tensor,
-                    plan: F.FusedPlan):
+                    plan: F.FusedPlan, shape=None):
     """Launch the fused tree kernel: ops int16[N, C, 4096], meta the
     ``pack_lift_meta`` block. Returns (bits int16[C, 4096], card i32[C]).
-    Plans with more slots than shared memory holds run with a global
-    scratch buffer."""
+    ``shape`` (one of ``fused_shapes``; for tests and tools) overrides
+    ``fused_launch_shape``'s; a plan whose rows exceed shared memory runs
+    with a global scratch buffer."""
     _check(ops, torch.int16, "ops")
     _check(meta, torch.int32, "meta")
     N, C = ops.shape[0], ops.shape[1]
@@ -210,16 +255,22 @@ def fused_eval_cuda(ops: torch.Tensor, meta: torch.Tensor,
                          f"of {plan.n_operands} operands")
     if meta.numel() != F.LIFT_META_FIELDS * N * C + C:
         raise ValueError(f"bad meta length {meta.numel()}")
-    tape = F.encode_tape(plan, ops.device)
+    n = len(F.kernel_program(plan)[0])
+    split, stack_rows, in_smem = shape or fused_launch_shape(
+        n, plan.n_slots, *fused_smem(ops.device))
+    lifts, prog = F.encode_program(plan, D.ROW_WORDS // 8 // split,
+                                   ops.device)
     scratch = None
-    if plan.n_slots > fused_max_smem_slots(ops.device):
-        scratch = torch.empty((C * plan.n_slots * D.ROW_WORDS // 2,),
+    if not in_smem:
+        scratch = torch.empty((C * ((n + stack_rows) * D.ROW_WORDS // 2
+                                    + 4 * n),),
                               dtype=torch.int32, device=ops.device)
     bits = torch.empty((C, D.ROW_WORDS), dtype=torch.int16, device=ops.device)
     card = torch.empty((C,), dtype=torch.int32, device=ops.device)
     err = _lib().roaring_fused_eval(
-        _ptr(ops), _ptr(meta), _ptr(tape), tape.shape[0], N, C, plan.n_slots,
-        _ptr(bits), _ptr(card), _ptr(scratch), _stream(ops))
+        _ptr(ops), _ptr(meta), _ptr(prog), prog.shape[0] - F.PROGRAM_PAD,
+        _ptr(lifts), n, N, C, stack_rows, split, _ptr(bits),
+        _ptr(card), _ptr(scratch), _stream(ops))
     _build.raise_on(err, "fused_tree")
     launch_counts["fused_tree"] += 1
     return bits, card

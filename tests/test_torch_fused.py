@@ -3,9 +3,10 @@
 Tapes, slot counts, the packed lift meta and the launch/traffic model must
 equal the reference's; the plain-torch ``fused_eval_ref`` must give the same
 bits and cards as the reference's XLA formulation on seeded trees of depth
-1-5 over operands of every kind (dead columns included). The CUDA kernel is
-held against ``fused_eval_ref`` by ``test_torch_gpu.py`` (on the card) and
-by ``chip_smoke.py``.
+1-5 over operands of every kind (dead columns included), and so must a plain
+replay of the program the host derives for the CUDA kernel
+(``kernel_program``). The CUDA kernel is held against ``fused_eval_ref`` by
+``test_torch_gpu.py`` (on the card) and by ``chip_smoke.py``.
 """
 
 import numpy as np
@@ -90,6 +91,7 @@ def test_fused_eval_ref_equals_reference(operands):
     kind, card, nruns, data = operands
     meta = np.array(JF.pack_lift_meta(jnp.asarray(kind), jnp.asarray(card),
                                       jnp.asarray(nruns)))
+    leaves = _np_leaves(operands)
     for name, tree in TREES.items():
         plan_j, plan_t = JF.plan_tape(tree), TF.plan_tape(tree)
         bj, cj = _jax_fused(jnp.asarray(data), jnp.asarray(meta), plan=plan_j)
@@ -98,6 +100,8 @@ def test_fused_eval_ref_equals_reference(operands):
         assert np.array_equal(np.asarray(bj), to_np16(bt)), name
         assert np.array_equal(np.asarray(cj), ct.numpy()), name
         assert ct[9] == 0 and not bt[9].any(), name        # dead column
+        assert np.array_equal(_replay_program(plan_t, leaves)[:9],
+                              to_np16(bt)[:9]), name
     _check_deep_plan_beyond_shared_memory(operands)
 
 
@@ -112,6 +116,32 @@ def _np_members(kind, card, nruns, row):
         for s, ln in row.reshape(-1, 2)[:nruns].astype(np.int64):
             bits[s:s + ln + 1] = True
     return np.packbits(bits, bitorder="little").view(np.uint16)
+
+
+def _np_leaves(operands):
+    """Every operand row lifted on the host: u16[N, C, 4096]."""
+    kind, card, nruns, data = operands
+    return np.stack([np.stack([
+        _np_members(kind[n, c], card[n, c], nruns[n, c], data[n, c])
+        for c in range(data.shape[1])]) for n in range(data.shape[0])])
+
+
+def _replay_program(plan, leaves):
+    """The CUDA kernel's program as it reads it (``encode_program`` for
+    whole rows) replayed in numpy over lifted leaves u16[N, C, 4096]:
+    memory is a map from byte offset to row, the top of the stack one
+    array. Returns the root u16[C, 4096]."""
+    lifts, prog = TF.encode_program(plan, 512, "cpu")
+    n = lifts.numel()
+    mem = {16 * (n + d * 512): leaves[x] for d, x in enumerate(lifts.tolist())}
+    top = np.zeros_like(leaves[0])
+    for masks, operand, spill, _ in prog.tolist()[:-TF.PROGRAM_PAD]:
+        if spill >= 0:
+            mem[spill] = top
+        c1, c2, c3 = (np.uint16(0xFFFF * (masks >> k & 1)) for k in range(3))
+        y = mem[operand]
+        top = (top & c1) ^ (y & c2) ^ (top & y & c3)
+    return top
 
 
 def _np_tree(tree, leaves):
@@ -137,6 +167,10 @@ def _check_deep_plan_beyond_shared_memory(operands):
     meta = TF.pack_lift_meta(torch.from_numpy(kind), torch.from_numpy(card),
                              torch.from_numpy(nruns))
     bt, ct = TF.fused_eval_ref(to_t16(data), meta, plan=pt)
+    lifts, steps = TF.kernel_program(pt)
+    assert sorted(lifts) == [0, 1, 2, 3] and len(steps) < len(pt.tape)
+    assert np.array_equal(_replay_program(pt, _np_leaves(operands))[:9],
+                          to_np16(bt)[:9])
     for c in range(data.shape[1]):
         leaves = [_np_members(kind[n, c], card[n, c], nruns[n, c], data[n, c])
                   for n in range(data.shape[0])]

@@ -157,8 +157,44 @@ def _deep_tree(depth):
     return tree
 
 
+def _bsi_le_tree(k, bits, universe=0):
+    """``store.BitmapStore._bsi_le`` over slices 1..bits: rows whose value
+    is at most ``k``, with NOT x = ``universe`` ANDNOT x, so the universe
+    leaf and every slice come back many times."""
+    below, prefix = [], None
+    for j in reversed(range(bits)):
+        s_j, not_j = 1 + j, ("andnot", universe, 1 + j)
+        if (k >> j) & 1:
+            below.append(not_j if prefix is None else ("and", prefix, not_j))
+            prefix = s_j if prefix is None else ("and", prefix, s_j)
+        else:
+            prefix = not_j if prefix is None else ("and", prefix, not_j)
+    return ("or", *below, prefix)
+
+
+def _fused_operands(N, C, rng, universe=False):
+    """N operands x C columns of the kind-case rows drawn by ``rng``; the
+    last column dead; with ``universe``, operand 0 is the run row covering
+    the chunk in every live column."""
+    rows = case_rows(np.random.default_rng(SEED))
+    names = sorted(rows)
+    pick = rng.integers(0, len(names), (N, C))
+    if universe:
+        pick[0] = names.index("run_full")
+    kind, card, nr = (np.array([[rows[names[i]][f] for i in r]
+                                for r in pick], np.int32) for f in range(3))
+    kind[:, C - 1] = 0                                  # one dead column
+    data = np.stack([np.stack([rows[names[i]][3] for i in r]) for r in pick])
+    return to_t16(data), TF.pack_lift_meta(
+        torch.from_numpy(kind), torch.from_numpy(card), torch.from_numpy(nr))
+
+
 def test_fused_kernel_matches_plain_version(pairs, cuda):
-    """Trees of depth 1-5 and a 31-slot plan beyond shared memory."""
+    """Trees of depth 1-5 at every launch shape the kernel is built for; a
+    ``_bsi_le``-shaped tree that repeats its operands and a run row
+    covering the chunk; a 31-slot plan (in shared memory); a
+    61-slot plan past the stack's room in shared memory and a 64-operand
+    plan, both in global scratch."""
     A, B, meta = pairs
     m = meta.reshape(-1, 6)
     N, C = 4, 20
@@ -169,13 +205,34 @@ def test_fused_kernel_matches_plain_version(pairs, cuda):
     kind[:, C - 1] = 0                                  # one dead column
     lm = TF.pack_lift_meta(kind.contiguous(), card.contiguous(),
                            nr.contiguous())
-    for tree in TREES + [_deep_tree(30)]:
+    rng = np.random.default_rng(SEED)
+    bsi_ops, bsi_lm = _fused_operands(6, C, rng, universe=True)
+    wide_ops, wide_lm = _fused_operands(64, C, rng)
+    bsi = ("and", 5, ("andnot", _bsi_le_tree(12, 4), _bsi_le_tree(3, 4)))
+    wide = ("or", ("and", 0, 1), *[(("and", "andnot")[i % 2], i, i + 1)
+                                   for i in range(2, 63)])
+    smem = TK.fused_smem(cuda)
+    cases = [(t, ops, lm)
+             for t in TREES + [_deep_tree(30), _deep_tree(60)]]
+    cases += [(bsi, bsi_ops, bsi_lm), (wide, wide_ops, wide_lm)]
+    picked = {}
+    for tree, o, meta_ in cases:
         plan = TF.plan_tape(tree)
-        bt, ct = TF.fused_eval_ref(ops.contiguous(), lm, plan=plan)
-        bk, ck = TK.fused_eval_cuda(ops.contiguous().to(cuda), lm.to(cuda),
-                                    plan)
-        assert torch.equal(bk.cpu(), bt) and torch.equal(ck.cpu(), ct), \
-            plan.n_slots
+        n_lifts = len(TF.kernel_program(plan)[0])
+        bt, ct = TF.fused_eval_ref(o.contiguous(), meta_, plan=plan)
+        o_c, m_c = o.contiguous().to(cuda), meta_.to(cuda)
+        for shape in TK.fused_shapes(n_lifts, plan.n_slots, smem[0]):
+            bk, ck = TK.fused_eval_cuda(o_c, m_c, plan, shape=shape)
+            assert torch.equal(bk.cpu(), bt) and torch.equal(ck.cpu(), ct), \
+                (plan.n_slots, shape)
+        bk, ck = TK.fused_eval_cuda(o_c, m_c, plan)
+        assert torch.equal(bk.cpu(), bt) and torch.equal(ck.cpu(), ct)
+        picked[plan.n_slots, n_lifts] = TK.fused_launch_shape(
+            n_lifts, plan.n_slots, *smem)
+    plan = TF.plan_tape(bsi)
+    assert plan.n_loads > 2 * len(TF.kernel_program(plan)[0])
+    assert picked[31, 4][2]
+    assert not picked[61, 4][2] and not picked[3, 64][2]
 
 
 def test_service_on_card_equals_service_on_cpu(cuda):

@@ -65,9 +65,46 @@ def test_container_op_kernel_matches_plain_version(op):
         _same(got, ref.container_op_ref(a, b, k, op))
 
 
+def _span_pairs(rng):
+    """Packed-array pairs at the kernel's span edges: card_a on and beside
+    multiples of 16 and 32 (spans that straddle card_a), card_a = 4,096,
+    card_b = 0 over a padded row, and 65,535 in A alone, in B alone and in
+    both. Each (A, B) pair comes twice: B drawn apart from A, and B holding
+    half its values from A's."""
+    def row(vals):
+        r = np.full(4096, 0xFFFF, np.uint16)
+        r[:len(vals)] = vals
+        return len(vals), r
+
+    def pick(n, top=False):
+        v = np.sort(rng.choice(65535, n - top, replace=False))
+        return np.concatenate([v, [65535]]) if top else v
+
+    def shared(ra, ca, cb):
+        take = min(ca, cb // 2)
+        mine = ra[:ca][rng.choice(ca, take, replace=False)]
+        rest = rng.choice(np.setdiff1d(np.arange(1 << 16), mine),
+                          cb - take, replace=False)
+        return np.sort(np.concatenate([mine, rest]))
+
+    a_rows = [row(pick(n)) for n in (1, 15, 16, 17, 31, 33, 100, 4080,
+                                     4095, 4096)]
+    a_rows += [row(pick(n, top=True)) for n in (17, 4096)]
+    b_cards = [(0, False), (1, False), (17, False), (1500, False),
+               (4096, False), (33, True), (4096, True)]
+    A, B, cards = [], [], []
+    for ca, ra in a_rows:
+        for cb, top in b_cards:
+            for vals in (pick(cb, top), shared(ra, ca, cb)):
+                A.append(ra)
+                B.append(row(vals)[1])
+                cards += [ca, cb]
+    return np.stack(A), np.stack(B), np.asarray(cards, np.int32)
+
+
 def test_array_intersect_kernel_matches_plain_version():
     rng = np.random.default_rng(SEED)
-    grids = [cases.array_pairs(rng)]
+    grids = [cases.array_pairs(rng), _span_pairs(rng)]
     n = 2000
     A = np.full((n, 4096), 0xFFFF, np.uint16)
     B = np.full((n, 4096), 0xFFFF, np.uint16)
