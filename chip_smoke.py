@@ -28,7 +28,21 @@ paths of the port end to end:
   step 0 checked against the same step through the kernel's plain version
   and the loss falling; then the training launcher at the reduced config
   under ``ResilientTrainer`` with a simulated failure, ending on the
-  parameters of an uninterrupted run.
+  parameters of an uninterrupted run;
+* the paper's comparison (Chambi et al., 2014): the search terms at Zipf
+  ranks 1, 2, 4, ..., 2,048 and the store's ``lo_year = 1993`` /
+  ``lo_discount = 1`` pair in four formats — Roaring's serialized bytes
+  against WAH's, Concise's and BitSet's, and AND / OR with Roaring on the
+  card and on the host against WAH and Concise on the host, every result
+  equal;
+* sharded search: ``PostingIndex.shard`` over a one-rank NCCL
+  ``DeviceMesh``, the 96 top-k queries identical to the local index's;
+* gemma2-2b training with the Roaring top-k cross-pod gradient mean
+  (``grad_compression``, ratio 0.01) under a one-rank ``("pod",)`` mesh,
+  every leaf of step 0 checked against the top-k definition and the
+  embedding leaf's support overlaps against ``np.intersect1d``; then the
+  analytic FLOP rates (``models/flops.py``) of the training and serving
+  runs.
 
 It then times each kernel on the inputs its path gave it (device time
 alone: a spin on the card ahead of each start event outlasts the host's
@@ -47,6 +61,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -114,6 +129,11 @@ TRAIN_LIVE_BLOCKS = 318
 # than GNORM_RTOL
 LOSS_RTOL = 2e-3
 GNORM_RTOL = 2e-2
+# the compressed training phase: the Roaring top-k cross-pod gradient mean
+# at the reference's default ratio, on the same model, batch and block lists
+COMP_RATIO = 0.01
+COMP_STEPS = 3
+BF16_TFLOPS = 989.0           # H100 SXM dense bf16 peak (NVIDIA data sheet)
 # the launcher phase: reduced gemma2-2b, one simulated failure
 LAUNCH_ARGS = ["--arch", "gemma2-2b", "--reduced", "--steps", "6",
                "--batch", "2", "--seq", "256", "--ckpt-every", "2",
@@ -129,6 +149,11 @@ SSB_DAYS = int((np.datetime64("1998-08-02") - SSB_FIRST_DAY).astype(
     np.int64)) + 1
 SSB_BSI = ("lo_quantity", "lo_extendedprice")
 SSB_RATE_S = 3.0              # closed-loop fused count, seconds per query
+# the paper's rows: the search terms at Zipf ranks 1, 2, 4, ..., 2,048 (the
+# density sweep of the paper's figures) and one pair of the store's columns
+PAPER_RANKS = tuple(2 ** i for i in range(12))
+PAPER_DB_PAIR = (("lo_year", 1993), ("lo_discount", 1))
+PAPER_REPEATS = 5
 CONTAINER_OPS = ("and", "or", "xor", "andnot")
 # the kernels each path must launch
 SEARCH_KERNELS = ("intersect_dispatch", "intersect_dispatch_stacked",
@@ -684,7 +709,7 @@ def main_path(torch, S, K, obs, n_terms, seed, device="cuda"):
     log(f"search.latency_us: n={hist.count} p50 "
         f"{S.percentile(hist, 50):.0f} us p99 {S.percentile(hist, 99):.0f} "
         f"us; max_memory_allocated {peak:.3f} GB ({card})")
-    return launches, index, terms
+    return launches, index, terms, postings
 
 
 def capture_inputs(torch, S, K, index, terms, seed):
@@ -1495,7 +1520,9 @@ def serve_path(torch, T, SV, LS, SK, cfg, seed, device="cuda"):
         raise AssertionError("pages leaked: not every page is back in the "
                              "pool")
     log(f"pages: all {eng.table.n_pages} back in the pool")
-    return launches, largest[1], eng, params
+    rates = {"steps": n_steps, "wall_s": wall,
+             "fed": [len(r.prompt) - 1 + len(r.generated) for r in reqs]}
+    return launches, largest[1], eng, params, rates
 
 
 def check_greedy(torch, T, cfg, params, reqs, steps, tops):
@@ -1948,10 +1975,11 @@ def train_path(torch, T, SK, SR, TR, cfg, seed, device="cuda"):
     train_profile(torch, step, state, batch, device)
     del state, step
     gc.collect()
-    return launches, params, lists, batch
+    return launches, params, lists, batch, ms
 
 
-def train_profile(torch, step, state, batch, device="cuda", n=2):
+def train_profile(torch, step, state, batch, device="cuda", n=2,
+                  label="train"):
     """Two more steps under ``torch.profiler``: their wall time, device busy
     time against it and the top device work. The profiler adds host time,
     so the idle share is an upper bound."""
@@ -1966,7 +1994,7 @@ def train_profile(torch, step, state, batch, device="cuda", n=2):
             state, _ = step(state, batch)
         sync()
         wall_ms = (time.perf_counter() - t) * 1e3
-    log(f"profile train: {n} steps, wall {wall_ms:.1f} ms ("
+    log(f"profile {label}: {n} steps, wall {wall_ms:.1f} ms ("
         f"{wall_ms / n:.1f} ms per step); {device_summary(p, wall_ms, 8)} "
         f"({card_line() if cuda else device})")
 
@@ -2095,12 +2123,467 @@ def launcher_path(torch, LT, simulate_failure):
         raise AssertionError("the restored run ended on other parameters")
 
 
+
+# =============================================================================
+# the paper's rows: Roaring against WAH, Concise and BitSet
+# =============================================================================
+
+def _median_ms(fn, sync, n=PAPER_REPEATS):
+    """Median wall time of ``n`` calls, each ended by ``sync`` (one warm
+    call first); returns (ms, the last call's result)."""
+    out = fn()
+    sync()
+    times = []
+    for _ in range(n):
+        t = time.perf_counter()
+        out = fn()
+        sync()
+        times.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(times)), out
+
+
+def _paper_formats(B, slab, values):
+    """One value set in the four formats: the card slab, the host Roaring
+    bitmap (the port's ``py_roaring``), WAH, Concise and BitSet."""
+    host = slab.to_roaring()
+    if not np.array_equal(host.to_array(), values):
+        raise AssertionError("a slab does not hold its value set")
+    return {"card": slab, "host": host,
+            "wah": B.WahBitmap.from_sorted_unique(values),
+            "concise": B.ConciseBitmap.from_sorted_unique(values),
+            "bitset": B.BitSet.from_sorted_unique(values)}
+
+
+def _paper_sizes(name, f, n):
+    """Bytes and bits per value of each format for one set; returns the
+    row and logs it."""
+    row = {"set": name, "card": n,
+           "roaring": len(f["card"].serialize()),
+           "wah": f["wah"].size_in_bytes(),
+           "concise": f["concise"].size_in_bytes(),
+           "bitset": f["bitset"].size_in_bytes()}
+    bits = {k: 8 * row[k] / max(n, 1)
+            for k in ("roaring", "wah", "concise", "bitset")}
+    log(f"paper size {name}: {n} values; bytes (bits per value) Roaring "
+        f"{row['roaring']} ({bits['roaring']:.2f}), WAH {row['wah']} "
+        f"({bits['wah']:.2f}), Concise {row['concise']} "
+        f"({bits['concise']:.2f}), BitSet {row['bitset']} "
+        f"({bits['bitset']:.2f}); WAH / Roaring "
+        f"{row['wah'] / row['roaring']:.3f}, Concise / Roaring "
+        f"{row['concise'] / row['roaring']:.3f}")
+    return row
+
+
+def _paper_ops(torch, name, fa, fb, sync):
+    """AND and OR of one pair in each format, timed (median of
+    ``PAPER_REPEATS``); every format's result must give the same values,
+    and ``and_card`` the AND's count. Returns the row and logs it."""
+    row = {"pair": name}
+    for op in ("and", "or"):
+        ms, got = {}, {}
+        card_op = (lambda: fa["card"] & fb["card"]) if op == "and" else (
+            lambda: fa["card"] | fb["card"])
+        ms["card"], out = _median_ms(card_op, sync)
+        got["card"] = out.to_roaring().to_array()
+        host = (lambda: fa["host"] & fb["host"]) if op == "and" else (
+            lambda: fa["host"] | fb["host"])
+        ms["host"], out = _median_ms(host, lambda: None)
+        got["host"] = out.to_array()
+        for fmt in ("wah", "concise"):
+            fn = getattr(fa[fmt], op + "_")
+            ms[fmt], out = _median_ms(lambda: fn(fb[fmt]), lambda: None)
+            got[fmt] = out.to_array()
+        if op == "and":
+            ms["card_and_card"], n = _median_ms(
+                lambda: fa["card"].and_card(fb["card"]), sync)
+            if int(n) != got["card"].size:
+                raise AssertionError(f"paper {name}: and_card {int(n)} != "
+                                     f"{got['card'].size}")
+        want = got["host"]
+        for fmt, vals in got.items():
+            if not np.array_equal(np.asarray(vals, np.int64),
+                                  np.asarray(want, np.int64)):
+                raise AssertionError(f"paper {name} {op}: {fmt} differs "
+                                     "from the host Roaring result")
+        row[op] = ms
+        row[op + "_card"] = int(want.size)
+        log(f"paper {op.upper()} {name}: {want.size} values, all four "
+            f"formats equal; ms card {ms['card']:.4f}"
+            + (f" (and_card {ms['card_and_card']:.4f})" if op == "and"
+               else "")
+            + f", host Roaring {ms['host']:.4f}, WAH {ms['wah']:.4f}, "
+            f"Concise {ms['concise']:.4f}; WAH / card "
+            f"{ms['wah'] / ms['card']:.2f}x, Concise / card "
+            f"{ms['concise'] / ms['card']:.2f}x, WAH / host Roaring "
+            f"{ms['wah'] / ms['host']:.2f}x, Concise / host Roaring "
+            f"{ms['concise'] / ms['host']:.2f}x")
+    return row
+
+
+def paper_rows(torch, K, B, index, postings, terms, device="cuda"):
+    """The paper's comparison on the search index: the terms at Zipf ranks
+    1, 2, 4, ..., 2,048 sweep the density; each term's size in the four
+    formats, and AND / OR of each adjacent pair, Roaring on the card
+    (object API, wall time synced) and on the host against WAH and Concise
+    on the host (the ``expanded`` engine), every result equal. Returns
+    (rows, launches); fails if ``intersect_dispatch`` never launched."""
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    t0 = time.perf_counter()
+    ranks = [r for r in PAPER_RANKS if r <= len(terms)]
+    sets = {}
+    for r in ranks:
+        t = terms[r - 1]
+        sets[r] = (_paper_formats(B, index.posting(t), postings[t]),
+                   postings[t].size)
+    t_build = time.perf_counter() - t0
+    sizes = [_paper_sizes(f"rank {r}", *sets[r]) for r in ranks]
+    K.reset_launch_counts()
+    ops = [_paper_ops(torch, f"ranks {a} x {b}", sets[a][0], sets[b][0],
+                      sync) for a, b in zip(ranks, ranks[1:])]
+    launches = dict(K.launch_counts)
+    log(f"launches on the paper path: {launches}")
+    if cuda and launches["intersect_dispatch"] <= 0:
+        raise AssertionError("intersect_dispatch never launched on the "
+                             "paper path")
+    log(f"paper rows: {len(sizes)} terms, {len(ops)} pairs; formats built "
+        f"in {t_build:.1f} s ({card_line() if cuda else device})")
+    return {"sizes": sizes, "ops": ops}, launches
+
+
+def paper_db_pair(torch, K, B, RS, store, device="cuda"):
+    """The paper's database pair at the store's scale: ``lo_year = 1993``
+    and ``lo_discount = 1`` (Q1.1's operands), sizes and AND / OR in the
+    four formats as ``paper_rows``."""
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    t0 = time.perf_counter()
+    fs = []
+    for col, v in PAPER_DB_PAIR:
+        c = store.column(col)
+        rb = store.slot_bitmap(c.base_slot + c.values.index(v))
+        vals = rb.to_array()
+        slab = RS.RoaringSlab.from_roaring(rb, store.n_chunks, device=device)
+        fs.append((_paper_formats(B, slab, vals), vals.size))
+    t_build = time.perf_counter() - t0
+    names = [f"{c} = {v}" for c, v in PAPER_DB_PAIR]
+    sizes = [_paper_sizes(n, *f) for n, f in zip(names, fs)]
+    K.reset_launch_counts()
+    ops = _paper_ops(torch, " x ".join(names), fs[0][0], fs[1][0], sync)
+    if cuda and K.launch_counts["intersect_dispatch"] <= 0:
+        raise AssertionError("intersect_dispatch never launched on the "
+                             "paper's database pair")
+    log(f"paper database pair over {store.n_rows} rows: formats built in "
+        f"{t_build:.1f} s; {time.perf_counter() - t0:.1f} s in all "
+        f"({card_line() if cuda else device})")
+    return {"sizes": sizes, "ops": [ops]}
+
+
+# =============================================================================
+# one-rank process groups: sharded search, compressed training
+# =============================================================================
+
+def one_rank_group(torch, device="cuda"):
+    """Join a one-rank process group (NCCL on the card, gloo on the CPU)
+    through a file store; no network. Returns the store's path."""
+    import torch.distributed as dist
+    fd, path = tempfile.mkstemp(prefix="smoke-pg-")
+    os.close(fd)
+    os.remove(path)
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("nccl" if device == "cuda" else "gloo",
+                            init_method=f"file://{path}", rank=0,
+                            world_size=1)
+    return path
+
+
+def leave_group(path):
+    import torch.distributed as dist
+    dist.destroy_process_group()
+    if os.path.exists(path):
+        os.remove(path)
+
+
+def sharded_search(torch, S, K, ops, index, terms, seed, device="cuda"):
+    """``PostingIndex.shard`` over a one-rank ``("data",)`` mesh: the
+    smoke's 96 top-k queries (``main_path``'s stream) scored by the local
+    index inside the service, and each query slab again by the sharded
+    index; scores and rows must be identical. Counts the stacked kernel's
+    launches through the ``LaunchEvent`` hook."""
+    from torch.distributed.device_mesh import DeviceMesh
+    cuda = device == "cuda"
+    path = one_rank_group(torch, device)
+    t0 = time.perf_counter()
+    try:
+        mesh = DeviceMesh("cuda" if cuda else "cpu", torch.arange(1),
+                          mesh_dim_names=("data",))
+        sharded = index.shard(mesh)
+        seen = []
+        local_topk = index.topk
+
+        def recording(query, k):
+            out = local_topk(query, k)
+            seen.append((query, k, out))
+            return out
+
+        events = {"local": 0, "sharded": 0}
+        phase = ["local"]
+
+        def hook(ev):
+            if ev.entry == "intersect_dispatch_stacked":
+                events[phase[0]] += 1
+
+        qs = make_queries(S, terms, 96, seed + 2)
+        svc = S.SearchService(index, max_batch=16, cache_slots=256,
+                              fused=True)
+        K.reset_launch_counts()
+        ops.add_launch_hook(hook)
+        index.topk = recording
+        try:
+            svc.search_many(qs, "topk", k=10)
+            phase[0] = "sharded"
+            got = [sharded.topk(q, k) for q, k, _ in seen]
+        finally:
+            del index.topk
+            ops.remove_launch_hook(hook)
+        launches = dict(K.launch_counts)
+        same = all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                   for (_, _, a), b in zip(seen, got))
+        log(f"sharded search: {sharded!r} over mesh "
+            f"{mesh.mesh_dim_names} of {mesh.size()} rank; {len(seen)} top-k "
+            f"queries, sharded == local scores and rows: {same}; "
+            f"stacked_card_kernel launches (LaunchEvent hook) local "
+            f"{events['local']}, sharded {events['sharded']}; "
+            f"{time.perf_counter() - t0:.1f} s")
+        if len(seen) != len(qs) or not same:
+            raise AssertionError("sharded top-k differs from local top-k")
+        if events["sharded"] != len(seen) or (
+                cuda and launches["intersect_dispatch_stacked"]
+                != events["local"] + events["sharded"]):
+            raise AssertionError("the sharded top-k did not run one stacked "
+                                 "launch per query")
+    finally:
+        leave_group(path)
+    return launches
+
+
+def _check_compressed_leaf(torch, g, out, k):
+    """One leaf of the compressed mean on one rank against its definition,
+    in plain torch: the nonzeros number min(k, nonzeros of g); each equals
+    g there; no dropped magnitude exceeds the smallest kept one; among
+    equal magnitudes at that threshold the kept ones have the lower
+    indices. Returns whether the leaf had a tie across the threshold."""
+    g, o = g.reshape(-1), out.reshape(-1)
+    kept = o != 0
+    nnz, nz_g = int(kept.sum()), int(torch.count_nonzero(g))
+    if nnz != min(k, nz_g):
+        raise AssertionError(f"{nnz} values kept, want min({k}, {nz_g})")
+    if not torch.equal(o[kept], g[kept]):
+        raise AssertionError("a kept value differs from the gradient")
+    if nnz < k:
+        return False
+    mag = g.abs()
+    t = mag[kept].min()
+    if float(torch.where(kept, 0.0, mag).max()) > float(t):
+        raise AssertionError("a dropped magnitude exceeds a kept one")
+    tie = mag == t
+    dropped = torch.nonzero(tie & ~kept).flatten()
+    if dropped.numel() and int(dropped.min()) < int(
+            torch.nonzero(tie & kept).max()):
+        raise AssertionError("a tie at the threshold kept a higher index")
+    return bool(dropped.numel())
+
+
+def compressed_train_path(torch, TR, K, SK, cfg, params, lists, batch,
+                          plain_ms, device="cuda", profile=False):
+    """gemma2-2b steps with the Roaring top-k cross-pod gradient mean
+    (``grad_compression={"axis": "pod", "ratio": 0.01}``) under a one-rank
+    ``("pod",)`` mesh. Step 0 checks every leaf against the definition
+    (``_check_compressed_leaf``) and takes the tree's compression ratio;
+    the later steps keep nothing but a reference to the embedding leaf's
+    ``CompressedLeaf``, and give the ms a step and the peak memory.
+    After the last step, the embedding leaf's support at step 2 is scored
+    against steps 0 and 1 with ``leaf_overlap_many`` (one stacked launch)
+    and ``leaf_overlap`` / ``leaf_jaccard`` (the dispatch kernel) against
+    ``np.intersect1d``. With ``profile``, two more steps run under the
+    profiler. Returns (launches, ms per step, ratio, peak GB)."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch import grad_comp as GC
+    from repro_torch.distributed import context
+    from repro_torch.grad_comp import topk_roaring as TK
+    from repro_torch.optim import adamw, cosine_schedule
+
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    comp = {"axis": "pod", "ratio": COMP_RATIO}
+    embed = params["embed"]["table"]
+    n_embed = embed.numel()
+    sent, embeds, ties, checked = [], [], [], []
+    metrics, times = [], []
+    orig_mean, orig_compress = GC.compressed_crosspod_mean, TK.compress_leaf
+
+    def compress(g, k):
+        c = orig_compress(g, k)
+        if g.numel() == n_embed:
+            embeds.append(c)
+        if not times:
+            sent.append((g.numel(), GC.compression_ratio(c, g.numel())))
+        return c
+
+    def mean(grads, **kw):
+        if checked:
+            return orig_mean(grads, **kw)
+        for g in _leaves(grads):
+            before = g.clone()
+            orig_mean([g], **kw)
+            k = max(64, int(np.ceil(g.numel() * kw["ratio"])))
+            ties.append(_check_compressed_leaf(torch, before, g, k))
+            checked.append(g.numel())
+            del before
+        return grads
+
+    path = one_rank_group(torch, device)
+    opt = adamw(cosine_schedule(3e-4, warmup=20, total=COMP_STEPS))
+    state = TR.TrainState(params, opt.init(params), 0)
+    step = TR.make_train_step(cfg, opt, remat="full", block_lists=lists,
+                              grad_compression=comp)
+    try:
+        mesh = DeviceMesh("cuda" if cuda else "cpu", torch.arange(1),
+                          mesh_dim_names=("pod",))
+        sync()
+        K.reset_launch_counts()
+        SK.reset_launch_counts()
+        GC.compressed_crosspod_mean, TK.compress_leaf = mean, compress
+        try:
+            with context.data_axes(("pod",), 1, None, mesh=mesh):
+                for i in range(COMP_STEPS):
+                    if i == 1 and cuda:
+                        torch.cuda.reset_peak_memory_stats()
+                    t = time.perf_counter()
+                    state, m = step(state, batch)
+                    sync()
+                    times.append(time.perf_counter() - t)
+                    metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        finally:
+            GC.compressed_crosspod_mean, TK.compress_leaf = (orig_mean,
+                                                             orig_compress)
+        peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else \
+            float("nan")
+        ratio = sum(n * r for n, r in sent) / sum(n for n, _ in sent)
+        kept = sum(x.numel() * x.element_size() for c in embeds[:2]
+                   for x in (c.slab.keys, c.slab.kinds, c.slab.cards,
+                             c.slab.nruns, c.slab.payload, c.values))
+        supports = [torch.nonzero(GC.decompress_leaf(
+            c, embed.shape, embed.dtype).reshape(-1)).flatten().cpu().numpy()
+            for c in embeds]
+        c0, c1, c2 = embeds[:3]
+        many = GC.leaf_overlap_many(c2, [c0, c1]).cpu().numpy()
+        pair = int(GC.leaf_overlap(c2, c1))
+        jac = float(GC.leaf_jaccard(c2, c1))
+        sync()
+        launches = {**K.launch_counts, **SK.launch_counts}
+        if profile:
+            with context.data_axes(("pod",), 1, None, mesh=mesh):
+                train_profile(torch, step, state, batch, device,
+                              label="compressed train")
+    finally:
+        leave_group(path)
+    want = [np.intersect1d(supports[2], supports[s]).size for s in (0, 1)]
+    union = np.union1d(supports[2], supports[1]).size
+    k_embed = max(64, int(np.ceil(n_embed * COMP_RATIO)))
+    card = card_line() if cuda else device
+    ms = 1e3 * float(np.mean(times[1:]))
+    log(f"compressed train steps (loss, grad norm): " + "; ".join(
+        f"{a:.5f}, {b:.4f}" for a, b in metrics))
+    log(f"compressed train: {COMP_STEPS} steps, grad_compression {comp} "
+        f"over a one-rank ('pod',) mesh; step 0 (leaf checks) "
+        f"{1e3 * times[0]:.1f} ms, steps 1-{COMP_STEPS - 1} (no checks) "
+        f"{ms:.1f} ms per step against {plain_ms:.1f} without compression; "
+        f"compression ratio of the whole tree at step 0 {ratio:.5f} "
+        f"(Roaring index bits + f32 values over dense f32 bits); "
+        f"max_memory_allocated over steps 1-{COMP_STEPS - 1} {peak:.2f} GB, "
+        f"{kept / 1e9:.3f} GB of it the embedding leaves kept for the "
+        f"overlap check ({card})")
+    log(f"compressed step 0: {len(checked)} leaves ({sum(checked)} "
+        f"elements) hold their top-k exactly: each kept value equals the "
+        f"gradient, no dropped magnitude exceeds a kept one, ties at the "
+        f"threshold keep the lower index ({sum(ties)} leaves had such a "
+        f"tie)")
+    log(f"support overlap of the embedding leaf (k = {k_embed} of "
+        f"{n_embed}): step 2 against steps 0-1 leaf_overlap_many "
+        f"{many.tolist()}, np.intersect1d {want}; leaf_overlap (step 2 x 1) "
+        f"{pair}, leaf_jaccard {jac:.6f} (np {want[1] / union:.6f}); "
+        f"launches {launches}")
+    if len(checked) != len(_leaves(params)) or \
+            len(sent) != len(checked):
+        raise AssertionError("step 0 did not check every leaf")
+    if not np.all(np.isfinite(metrics)):
+        raise AssertionError("a compressed step's loss or grad norm is not "
+                             "finite")
+    if many.tolist() != want or pair != want[1] or \
+            abs(jac - want[1] / union) > 1e-6:
+        raise AssertionError("support overlaps differ from np.intersect1d")
+    if len(embeds) != COMP_STEPS or any(s.size != k_embed
+                                        for s in supports):
+        raise AssertionError("the embedding leaf did not keep k values")
+    per_step = 2 * cfg.n_superblocks * COMP_STEPS
+    if cuda and (launches["sparse_flash_attention"] != per_step
+                 or launches["intersect_dispatch_stacked"] <= 0
+                 or launches["intersect_dispatch"] <= 0):
+        raise AssertionError("a kernel of the compressed train path was not "
+                             "launched")
+    del state, step
+    gc.collect()
+    return launches, ms, ratio, peak
+
+
+def flop_rates(cfg, train_ms, comp_ms, serve_rates, device="cuda"):
+    """Analytic FLOP rates (``models/flops.py``) of the training and
+    serving runs, and their share of the card's bf16 dense peak."""
+    from repro_torch.models import flops as FL
+    card = card_line() if device == "cuda" else device
+    train = FL.cell_flops(cfg, kind="train", seq_len=TRAIN_SEQ,
+                          global_batch=TRAIN_BATCH).total
+    ref = FL.model_flops_reference(cfg, kind="train", seq_len=TRAIN_SEQ,
+                                   global_batch=TRAIN_BATCH)
+    parts = []
+    for name, ms in (("plain", train_ms), ("compressed", comp_ms)):
+        parts.append(
+            f"{name} {ms:.1f} ms a step: analytic {train / ms / 1e9:.2f} "
+            f"TFLOP/s ({train / ms / 1e9 / BF16_TFLOPS:.2%} of "
+            f"{BF16_TFLOPS:.0f} TFLOP/s bf16 dense), 6 N D "
+            f"{ref / ms / 1e9:.2f} TFLOP/s ({ref / ms / 1e9 / BF16_TFLOPS:.2%})")
+    log(f"FLOP rate, training ({cfg.name}, {TRAIN_BATCH} x {TRAIN_SEQ}): "
+        f"cell_flops {train:.4e} FLOPs a step, model_flops_reference "
+        f"{ref:.4e}; " + "; ".join(parts) + ". The analytic model counts "
+        "dense attention, where the 13 global layers compute "
+        f"{TRAIN_LIVE_BLOCKS} of {(TRAIN_SEQ // cfg.sparse_block) ** 2} "
+        "blocks, and one forward where remat='full' runs two "
+        f"({card})")
+    from repro_torch.configs import get_config
+    scfg = get_config(SERVE_ARCH)
+    total = sum(FL.cell_flops(scfg, kind="decode", seq_len=s,
+                              global_batch=1).total
+                for n in serve_rates["fed"] for s in range(1, n + 1))
+    steps, wall = serve_rates["steps"], serve_rates["wall_s"]
+    ms = 1e3 * wall / steps
+    log(f"FLOP rate, serving ({scfg.name}): cell_flops(kind='decode') over "
+        f"each of {steps} steps' context, {total / steps:.4e} FLOPs a step "
+        f"on average, over {ms:.2f} ms a step = {total / wall / 1e12:.4f} "
+        f"TFLOP/s ({total / wall / 1e12 / BF16_TFLOPS:.4%} of "
+        f"{BF16_TFLOPS:.0f}) ({card})")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--terms", type=int, default=N_TERMS,
                     help="vocabulary size (cut only if the time limit "
                          "forces it)")
     ap.add_argument("--seed", type=int, default=1402)
+    ap.add_argument("--profile-compressed", action="store_true",
+                    help="profile two more compressed training steps "
+                         "(about 110 s more on an H100)")
     args = ap.parse_args(argv)
 
     import torch
@@ -2130,6 +2613,8 @@ def main(argv=None) -> int:
     from repro_torch.models import transformer as T
     from repro_torch.runtime import simulate_failure
     from repro_torch import train as TR
+    from repro_torch import baselines as B
+    from repro_torch import roaring as RS
 
     # float32 matmuls and convolutions in full float32 (no TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2160,19 +2645,31 @@ def main(argv=None) -> int:
     check_paged_decode(torch, pd_cases, SK, SR, args.seed)
     check_sparse_flash(torch, pd_cases, SK, SR, args.seed)
     t = time.perf_counter()
-    launches, index, terms = main_path(torch, S, K, obs, args.terms,
-                                       args.seed)
+    launches, index, terms, postings = main_path(torch, S, K, obs,
+                                                 args.terms, args.seed)
     captured = capture_inputs(torch, S, K, index, terms, args.seed)
     rows = kernel_rows(torch, K, ref, F, launches, captured, regs)
     where_time_goes(torch, S, obs, index, terms, args.seed)
-    del index, captured
+    del captured
     log(f"search phases: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    paper, paper_launches = paper_rows(torch, K, B, index, postings, terms)
+    log(f"paper phase: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    sharded_launches = sharded_search(torch, S, K, ops, index, terms,
+                                      args.seed)
+    del index, postings
+    log(f"sharded search phase: {time.perf_counter() - t:.1f} s")
 
     t = time.perf_counter()
     store, records, store_fused = store_path(torch, ST, K, ref, F, pr, FS,
                                              SSB_SF, args.seed)
     next(r for r in rows if r["name"] == "fused_tree")[
         "store_launches"] = store_fused
+    t_db = time.perf_counter()
+    paper["db"] = paper_db_pair(torch, K, B, RS, store)
+    log(f"paper database pair phase: {time.perf_counter() - t_db:.1f} s")
+    log("paper rows (JSON): " + json.dumps(paper))
     rows += container_rows(torch, K, ops, ref, tr, store, records)
     del store, records
     gc.collect()
@@ -2181,7 +2678,7 @@ def main(argv=None) -> int:
 
     t = time.perf_counter()
     cfg = get_config(SERVE_ARCH)
-    serve_launches, largest, eng, params = serve_path(
+    serve_launches, largest, eng, params, serve_rates = serve_path(
         torch, T, SV, LS, SK, cfg, args.seed)
     serve_profile(torch, SV, LS, obs, cfg, params, eng, args.seed)
     del params
@@ -2194,15 +2691,33 @@ def main(argv=None) -> int:
 
     t = time.perf_counter()
     cfg = dataclasses.replace(get_config(TRAIN_ARCH), attn_impl="sparse")
-    train_launches, params, lists, batch = train_path(
+    train_launches, params, lists, batch, train_ms = train_path(
         torch, T, SK, SR, TR, cfg, args.seed)
     rows.append(sparse_flash_row(torch, T, SK, SR, cfg, params, lists,
                                  batch, train_launches, regs))
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"train phases: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    comp_launches, comp_ms, _, _ = compressed_train_path(
+        torch, TR, K, SK, cfg, params, lists, batch, train_ms,
+        profile=args.profile_compressed)
     del params, batch
     gc.collect()
     torch.cuda.empty_cache()
+    log(f"compressed train phase: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
     launcher_path(torch, LT, simulate_failure)
-    log(f"train phases: {time.perf_counter() - t:.1f} s")
+    flop_rates(cfg, train_ms, comp_ms, serve_rates)
+    log(f"launcher and FLOP rate phases: {time.perf_counter() - t:.1f} s")
+    by_name = {r["name"]: r for r in rows}
+    by_name["intersect_dispatch"]["paper_launches"] = \
+        paper_launches["intersect_dispatch"]
+    by_name["intersect_dispatch_stacked"]["sharded_launches"] = \
+        sharded_launches["intersect_dispatch_stacked"]
+    for name in ("intersect_dispatch", "intersect_dispatch_stacked",
+                 "sparse_flash_attention"):
+        by_name[name]["compressed_train_launches"] = comp_launches[name]
     log(f"total: {time.perf_counter() - t_start:.1f} s")
 
     print(card_line(), flush=True)

@@ -20,6 +20,19 @@ def leaves(tree: Any) -> List[Any]:
     return [tree]
 
 
+def leaves_with_paths(tree: Any, prefix: tuple = ()) -> List[tuple]:
+    """``(path, leaf)`` pairs in ``leaves`` order; a path is the tuple of
+    dict keys and list positions from the root (the reference's key path:
+    ``("blocks", 0, "attn", "wq")`` reads ``blocks/0/attn/wq``)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in leaves_with_paths(tree[k], prefix + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree)
+                for x in leaves_with_paths(v, prefix + (i,))]
+    return [(prefix, tree)]
+
+
 def unflatten(like: Any, flat: List[Any]) -> Any:
     """A tree shaped like ``like`` whose leaves are ``flat``, in order."""
     it = iter(flat)

@@ -602,15 +602,26 @@ def to_roaring(slab: RoaringSlab):
     return rb
 
 
+_WIDEN_ROWS = 1024      # rows widened at a time by ``to_indices``
+
+
 def to_indices(slab: RoaringSlab, max_out: Optional[int] = None):
     """Slab -> (sorted values i64[max_out], valid bool[max_out]); values
-    past the cardinality are 0. ``max_out`` defaults to the cardinality."""
+    past the cardinality are 0. ``max_out`` defaults to the cardinality.
+    Rows widen to one bool per value ``_WIDEN_ROWS`` at a time, so a large
+    slab (a gradient leaf's 9,000 rows) needs no [C, 2^16] buffer."""
     bits = _lift_rows(slab.data, slab.card, slab.kind)
     C = bits.shape[0]
     shifts = torch.arange(16, dtype=torch.int32, device=bits.device)
-    bitmat = ((bits[:, :, None] >> shifts) & 1).reshape(C, CHUNK_SIZE) == 1
-    r, pos = torch.nonzero(bitmat, as_tuple=True)
-    vals = (slab.keys.to(torch.int64)[r] << CHUNK_BITS) + pos
+    keys = slab.keys.to(torch.int64)
+    vals = []
+    for lo in range(0, max(C, 1), _WIDEN_ROWS):
+        part = bits[lo:lo + _WIDEN_ROWS]
+        bitmat = ((part[:, :, None] >> shifts) & 1).reshape(
+            part.shape[0], CHUNK_SIZE) == 1
+        r, pos = torch.nonzero(bitmat, as_tuple=True)
+        vals.append((keys[lo + r] << CHUNK_BITS) + pos)
+    vals = vals[0] if len(vals) == 1 else torch.cat(vals)
     if max_out is None:
         max_out = vals.numel()
     out = torch.zeros((max_out,), dtype=torch.int64, device=bits.device)

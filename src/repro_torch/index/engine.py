@@ -13,7 +13,9 @@ attached to the tree directly via ``leaf(slab)``:
   * ``fused=True`` evaluates the whole tree in ONE ``fused_tree`` launch,
     with the per-op path as the next rung of the degradation ladder;
   * ``batched_and_card`` / ``topk_by_card`` score all N stacked slabs
-    against one query in a single stacked dispatch launch.
+    against one query in a single stacked dispatch launch; their
+    ``_sharded`` forms score each rank's rows of a stack sharded over a
+    ``DeviceMesh`` dimension and all-gather the scores.
 
 The ladder (``_run_ladder``) drops a rung only for ``InjectedFault`` — the
 fault plan's exception. Any other error propagates, so on the card a kernel
@@ -41,8 +43,8 @@ __all__ = [
     "leaf", "and_", "or_", "andnot",
     "CompiledQuery", "compile_query",
     "execute", "execute_card", "wide_union", "wide_intersect",
-    "batched_and_card", "topk_by_card", "union_many_batched",
-    "launch_model",
+    "batched_and_card", "batched_and_card_sharded", "topk_by_card",
+    "topk_by_card_sharded", "union_many_batched", "launch_model",
 ]
 
 
@@ -561,6 +563,51 @@ def topk_by_card(stack: RoaringSlab, query: SlabLike, k: int):
     """Top-k stacked slabs by intersection cardinality with ``query``:
     ``(scores i32[k], indices i32[k])``, highest score first and, among
     equal scores, the lower index first."""
-    scores = batched_and_card(stack, query)
+    return _topk_scores(batched_and_card(stack, query), k)
+
+
+def _topk_scores(scores: torch.Tensor, k: int):
     order = torch.sort(scores, descending=True, stable=True)
     return order.values[:k], order.indices[:k].to(torch.int32)
+
+
+# =============================================================================
+# sharding: slab axis across the ranks of a mesh dimension, query replicated
+# =============================================================================
+
+def _local(x):
+    """A DTensor's local shard (a plain tensor as it is)."""
+    return x.to_local() if hasattr(x, "to_local") else x
+
+
+def batched_and_card_sharded(stack: RoaringSlab, query: SlabLike,
+                             mesh, axis: str = "data") -> torch.Tensor:
+    """``batched_and_card`` with the slab axis sharded over ``mesh[axis]``
+    (``distributed.sharding.shard_postings``).
+
+    Each rank scores its own rows against the replicated query with one
+    stacked launch and the i32 scores are all-gathered in rank order over
+    the axis's process group; no slab payload crosses ranks. The stack's
+    row count must divide evenly by the axis size. Returns i32[N], the
+    same on every rank.
+    """
+    import torch.distributed as dist
+
+    local = RoaringSlab(keys=_local(stack.keys), kinds=_local(stack.kinds),
+                        cards=_local(stack.cards), nruns=_local(stack.nruns),
+                        payload=_local(stack.payload), C=stack.C)
+    scores = batched_and_card(local, query)
+    group = mesh.get_group(axis)
+    parts = [torch.empty_like(scores)
+             for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, scores, group=group)
+    return torch.cat(parts)
+
+
+def topk_by_card_sharded(stack: RoaringSlab, query: SlabLike, k: int,
+                         mesh, axis: str = "data"):
+    """Sharded ``topk_by_card``: local scoring per rank, then the same
+    stable top-k over the gathered i32[N] scores (ties keep the lower
+    index first), so the result equals the unsharded one."""
+    return _topk_scores(
+        batched_and_card_sharded(stack, query, mesh, axis=axis), k)

@@ -474,3 +474,55 @@ class RoaringFormatSpec:
             return
         for i, payload_pos, arr in array_checks:       # locate (error path)
             _raise_unless_sorted(arr, i, payload_pos)
+
+    # -- trusted-path baseline (A/B benchmark only) ---------------------------
+    @classmethod
+    def _deserialize_trusted(cls, data: bytes) -> pr.RoaringBitmap:
+        """The pre-hardening decode loop, kept as the trusted-input
+        baseline that validation overhead is measured against (the
+        reference's ``robust/*`` benchmark rows gate it at <= 1.3x this
+        path). Never feed it untrusted bytes."""
+        (cookie,) = struct.unpack_from("<I", data, 0)
+        pos = 4
+        if cookie & 0xFFFF == cls.SERIAL_COOKIE:
+            n = (cookie >> 16) + 1
+            nbytes = (n + 7) // 8
+            runbits = data[pos:pos + nbytes]
+            pos += nbytes
+            is_run = [(runbits[i >> 3] >> (i & 7)) & 1 == 1 for i in range(n)]
+            with_offsets = n >= cls.NO_OFFSET_THRESHOLD
+        else:
+            (n,) = struct.unpack_from("<I", data, pos)
+            pos += 4
+            is_run = [False] * n
+            with_offsets = True
+        keys, cards = [], []
+        for _ in range(n):
+            k, cm1 = struct.unpack_from("<HH", data, pos)
+            pos += 4
+            keys.append(k)
+            cards.append(cm1 + 1)
+        if with_offsets:
+            pos += 4 * n
+        rb = pr.RoaringBitmap()
+        for i in range(n):
+            if is_run[i]:
+                (n_runs,) = struct.unpack_from("<H", data, pos)
+                pos += 2
+                pairs = np.frombuffer(data, dtype="<u2", count=2 * n_runs,
+                                      offset=pos).astype(np.int64)
+                pos += 4 * n_runs
+                c: pr.Container = pr.RunContainer(pairs[0::2], pairs[1::2])
+            elif cards[i] > pr.ARRAY_MAX:
+                words = np.frombuffer(data, dtype="<u8", count=1024,
+                                      offset=pos).astype(np.uint64)
+                pos += 8192
+                c = pr.BitmapContainer(words, cardinality=cards[i])
+            else:
+                arr = np.frombuffer(data, dtype="<u2", count=cards[i],
+                                    offset=pos).astype(np.uint16)
+                pos += 2 * cards[i]
+                c = pr.ArrayContainer(arr)
+            rb.keys.append(keys[i])
+            rb.containers.append(c)
+        return rb

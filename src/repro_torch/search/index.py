@@ -5,6 +5,13 @@ on one device over a 32-bit document universe (``C = ceil(n_docs / 2^16)``
 chunk rows per term, shared key row ``arange(C)``). Row 0 is reserved as
 the empty posting so queries over unknown terms resolve to well-formed
 empties.
+
+``shard(mesh)`` partitions the *term* axis over a dimension of a
+``torch.distributed`` ``DeviceMesh`` (``distributed.sharding.
+shard_postings``): each rank keeps a contiguous block of rows, padded with
+empty rows so the axis always divides, and ``topk`` then scores each
+rank's rows with one stacked launch and gathers the scores
+(``topk_by_card_sharded``).
 """
 
 from __future__ import annotations
@@ -12,6 +19,7 @@ from __future__ import annotations
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch import _device
 from repro_torch.core import py_roaring as pr
@@ -31,14 +39,18 @@ def _chunks_for(n_docs: int) -> int:
 class PostingIndex:
     """Immutable inverted index: sorted term vocabulary over one stacked
     slab (row 0 reserved empty, then one posting row per term in sorted
-    term order)."""
+    term order). ``mesh`` / ``axis`` are set on sharded instances, whose
+    stack leaves are DTensors (``shard`` returns a new index; the host
+    metadata is shared)."""
 
     def __init__(self, terms: Tuple[str, ...], stack: RoaringSlab,
-                 n_docs: int):
+                 n_docs: int, mesh=None, axis: str = "data"):
         self.terms = terms
         self.stack = stack
         self.n_docs = n_docs
         self.C = stack.C
+        self.mesh = mesh
+        self.axis = axis
         self._row = {t: EMPTY_ROW + 1 + i for i, t in enumerate(terms)}
 
     # -- constructors ---------------------------------------------------------
@@ -108,7 +120,7 @@ class PostingIndex:
 
     @property
     def n_rows(self) -> int:
-        """Stack rows including the reserved empty row."""
+        """Stack rows including the reserved empty row and shard padding."""
         return self.stack.n_slabs
 
     @property
@@ -121,7 +133,7 @@ class PostingIndex:
         return self._row.get(t, EMPTY_ROW)
 
     def term_of(self, row: int) -> Optional[str]:
-        """Inverse of ``row`` (None for the reserved row)."""
+        """Inverse of ``row`` (None for the reserved and padding rows)."""
         i = row - (EMPTY_ROW + 1)
         return self.terms[i] if 0 <= i < len(self.terms) else None
 
@@ -129,10 +141,36 @@ class PostingIndex:
         """The term's posting as a single slab (row view of the stack)."""
         return self.stack[self.row(t)]
 
+    # -- sharding -------------------------------------------------------------
+    def shard(self, mesh, axis: str = "data") -> "PostingIndex":
+        """New index whose stack's term axis is sharded over the ``axis``
+        dimension of ``mesh`` (a ``DeviceMesh``) — rows are padded with
+        empty postings (key row preserved, kind 0) up to a multiple of the
+        axis size so the partition always divides."""
+        from repro_torch.distributed.sharding import mesh_sizes, shard_postings
+        stack = self.stack
+        pad = (-stack.n_slabs) % mesh_sizes(mesh)[axis]
+        if pad:
+            def padded(x):
+                return torch.cat([x, x.new_zeros((pad,) + x.shape[1:])])
+            stack = RoaringSlab(
+                keys=torch.cat([stack.keys,
+                                stack.keys[:1].expand(pad, stack.C)]),
+                kinds=padded(stack.kinds), cards=padded(stack.cards),
+                nruns=padded(stack.nruns), payload=padded(stack.payload),
+                C=stack.C)
+        stack = shard_postings(stack, mesh, axis)
+        return PostingIndex(self.terms, stack, self.n_docs, mesh=mesh,
+                            axis=axis)
+
     # -- scoring + accounting -------------------------------------------------
     def topk(self, query: RoaringSlab, k: int):
         """Top-k terms by ``|posting ∩ query|``: one stacked dispatch launch
-        over all rows. Returns ``(scores i32[k], rows i32[k])``."""
+        over all rows (over each rank's rows, the scores gathered, when the
+        index is sharded). Returns ``(scores i32[k], rows i32[k])``."""
+        if self.mesh is not None:
+            return _engine.topk_by_card_sharded(self.stack, query, k,
+                                                self.mesh, axis=self.axis)
         return _engine.topk_by_card(self.stack, query, k)
 
     def launch_model(self, expr) -> dict:
@@ -141,4 +179,5 @@ class PostingIndex:
 
     def __repr__(self) -> str:
         return (f"PostingIndex(terms={self.n_terms}, docs={self.n_docs}, "
-                f"C={self.C}, {self.device})")
+                f"C={self.C}, {self.device}"
+                + (", sharded" if self.mesh is not None else "") + ")")

@@ -39,6 +39,11 @@ class LoadStats:
     hit_rate: float
     latency: obs.Histogram = dataclasses.field(repr=False)
 
+    def row_dict(self) -> dict:
+        return {"qps": round(self.qps, 1), "p50_us": round(self.p50_us, 1),
+                "p99_us": round(self.p99_us, 1),
+                "hit_rate": round(self.hit_rate, 4)}
+
 
 def gen_zipf_postings(n_terms: int, n_docs: int, s: float,
                       seed: int) -> List[np.ndarray]:

@@ -3,8 +3,10 @@
 Parameters stay f32 and every layer computes in ``cfg.compute_dtype``, as
 in the reference. The step updates the train state **in place** (the
 optimizer's moments and the parameters; see ``optim``) and returns the same
-dict. The reference's ``grad_compression`` (the Roaring top-k cross-pod
-gradient mean) needs ``grad_comp``, which is not ported yet: it raises.
+dict. ``grad_compression={"axis": ..., "ratio": ...}`` replaces the
+gradients by their Roaring top-k mean over the declared mesh's ``axis``
+dimension (``grad_comp.compressed_crosspod_mean``) before clipping, where
+the reference applies it.
 """
 
 from __future__ import annotations
@@ -41,12 +43,9 @@ def make_train_step(cfg: ModelConfig, optimizer: OptimizerDef, *,
     (kv_idx, counts) from ``sparsity.compile_mask`` feed the block-sparse
     attention of global layers when ``cfg.attn_impl == "sparse"``. metrics:
     ``loss`` and ``grad_norm`` (before clipping), 0-d f32 tensors on the
-    parameters' device.
+    parameters' device. ``grad_compression`` needs a mesh with its axis
+    declared by ``distributed.context.data_axes`` around the step.
     """
-    if grad_compression is not None:
-        raise NotImplementedError(
-            "grad_compression needs the Roaring gradient compression of "
-            "grad_comp, which is not ported yet; see ROADMAP.md queue 1")
     lists_on = {}
 
     def lists_for(dev):
@@ -102,6 +101,11 @@ def make_train_step(cfg: ModelConfig, optimizer: OptimizerDef, *,
 
     def train_step(state, batch):
         loss, grads = compute_grads(state["params"], batch)
+        if grad_compression is not None:
+            from repro_torch.grad_comp import compressed_crosspod_mean
+            grads = compressed_crosspod_mean(
+                grads, axis_name=grad_compression.get("axis", "pod"),
+                ratio=grad_compression.get("ratio", 0.01))
         grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
         optimizer.update(grads, state["opt"], state["params"],
                          int(state["step"]))

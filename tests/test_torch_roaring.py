@@ -1,5 +1,7 @@
 """Port parity: the row-state algebra, canonicalization, the slab object,
-the codec and the query engine.
+the codec and the query engine, and the paper's RLE baselines (WAH,
+Concise, BitSet; ``_torch_baselines.check_baselines``, inside the codec
+item).
 
 Seeded inputs go through the reference (``repro``, XLA on the CPU) and the
 port (``repro_torch``, plain torch on the CPU); row states are compared
@@ -17,6 +19,7 @@ import jax
 import jax.numpy as jnp
 
 from _hypothesis_compat import given, settings, st
+from _torch_baselines import check_baselines
 from _torch_parity import (KIND_CASES, container_row,  # noqa: F401
                            release_jax_executables, slab_leaves, to_np16,
                            to_t16)
@@ -168,7 +171,9 @@ def _oracle_bitmaps(seed, n=6):
 def test_slab_and_codec_equal_reference():
     """``from_roaring`` and ``from_numpy`` give the reference's leaves and
     serialized bytes; the golden corpus replays byte-exact through the
-    port's codec; no device means the card."""
+    port's codec; no device means the card. The baselines the paper sizes
+    Roaring against equal the reference's word for word."""
+    check_baselines()
     _check_from_roaring_serialize()
     _check_from_numpy_carries_reference_bytes()
     goldens = sorted(p for p in CORPUS.glob("golden_*.bin")

@@ -6,6 +6,10 @@ must answer count / docs / topk exactly as the reference service does —
 fused and per-op, batched and sequential — and as a brute-force numpy
 oracle. The ladder, the LRU cache and the launch accounting are checked on
 the port alone (on the CPU the entry points run the plain versions).
+Inside the ``from_postings`` item, ``PostingIndex.shard`` over two gloo
+ranks (an odd row count, so one padding row) answers top-k as the
+reference's unsharded index does
+(``_torch_distributed.check_two_rank_search``).
 """
 
 import ast
@@ -16,6 +20,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+from _torch_distributed import check_two_rank_search
 from _torch_parity import release_jax_executables, slab_leaves  # noqa: F401
 from repro import search as JS
 from repro_torch import obs
@@ -101,6 +106,8 @@ def reference_answers(corpus):
 
 
 def test_from_postings_builds_the_reference_bytes(corpus):
+    """The port builds the reference's stack bytes; sharded over two gloo
+    ranks, the built index answers top-k as the reference's does."""
     jidx, tidx, postings = corpus
     built = TS.PostingIndex.from_postings(postings, N_DOCS, device="cpu")
     assert built.terms == tidx.terms == jidx.terms
@@ -114,6 +121,7 @@ def test_from_postings_builds_the_reference_bytes(corpus):
     with pytest.raises(ValueError, match="outside"):
         TS.PostingIndex.from_postings({"a": np.array([0, 70000])}, 65536,
                                       device="cpu")
+    check_two_rank_search()
 
 
 PATHS = {"fused_batched": dict(fused=True, max_batch=4),
@@ -254,7 +262,8 @@ def test_batched_launch_count_matches_model(corpus):
 
 def test_service_edges_and_loadgen(corpus):
     """Unknown terms, a bad mode, the default device; the load generator
-    and its corpus law equal the reference's."""
+    and its corpus law equal the reference's, and so does
+    ``LoadStats.row_dict``."""
     _check_unknown_term_bad_mode_and_default_device(corpus)
     _check_loadgen_matches_reference(corpus)
 
@@ -286,6 +295,10 @@ def _check_loadgen_matches_reference(corpus):
     stats = TS.run_closed_loop(svc, tq, concurrency=4, mode="count")
     assert stats.n_requests == 6 and stats.qps > 0
     assert stats.p50_us <= stats.p99_us
+    fields = {f: getattr(stats, f) for f in (
+        "n_requests", "concurrency", "wall_s", "qps", "p50_us", "p99_us",
+        "hit_rate", "latency")}
+    assert stats.row_dict() == JS.LoadStats(**fields).row_dict()
 
 
 # =============================================================================
@@ -340,6 +353,8 @@ def _check_imports_with_jax_and_repro_blocked():
         "import repro_torch.roaring, repro_torch.roaring.validate\n"
         "import repro_torch.store, repro_torch.store.io\n"
         "import repro_torch.kernels.roaring.cases\n"
+        "import repro_torch.baselines, repro_torch.distributed\n"
+        "import repro_torch.grad_comp, repro_torch.models.flops\n"
         "assert not any(m.split('.')[0] in ('jax', 'repro') "
         "for m in sys.modules)\n"
         "print('ok')\n")

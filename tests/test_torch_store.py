@@ -8,7 +8,8 @@ values exactly:
 
 * the object API: the constructors (``empty``, ``from_values``,
   ``from_indices``, ``from_ranges``, ``from_roaring(check=)``,
-  ``deserialize`` of the golden corpus), every operator and method (``&``,
+  ``deserialize`` and ``RoaringFormatSpec._deserialize_trusted`` of the
+  golden corpus), every operator and method (``&``,
   ``|``, ``^``, ``-``, ``and_card``, ``or_card``, ``jaccard``,
   ``contains``, ``rank``, ``select``, ``run_optimize``, ``n_containers``,
   ``size_in_bytes``, ``to_dense``, ``to_indices``) on single and stacked
@@ -129,6 +130,12 @@ def _check_constructors(rng, sets):
         t = TRG.RoaringSlab.deserialize(data, check=True, device="cpu")
         _same_leaves(JRG.RoaringSlab.deserialize(data), t, path.name)
         assert t.serialize() == data, path.name
+        # the trusted-input decode loop gives the reference's bitmap
+        jt = JRG.RoaringFormatSpec._deserialize_trusted(data)
+        tt = TRG.RoaringFormatSpec._deserialize_trusted(data)
+        assert tt.keys == jt.keys, path.name
+        assert TRG.RoaringFormatSpec.serialize(tt) == \
+            JRG.RoaringFormatSpec.serialize(jt) == data, path.name
     with pytest.raises(TRG.RoaringFormatError):
         TRG.RoaringSlab.deserialize(goldens[0].read_bytes(), capacity=0,
                                     device="cpu")

@@ -27,7 +27,14 @@ the CPU, with inputs made from a seed with numpy:
   parameter and moment after each step;
 * ``launch.train.main`` under ``ResilientTrainer`` with one simulated
   failure ends on the parameters of an uninterrupted run, exactly, and its
-  checkpoints read back through the reference's ``restore_checkpoint``.
+  checkpoints read back through the reference's ``restore_checkpoint``;
+* inside the train-steps item: Roaring top-k gradient compression, the
+  compressed train step and the sharding rules
+  (``_torch_distributed.check_grad_comp``), and ``models/flops.py``
+  (``_torch_baselines.check_flops``);
+* inside the resilient-training item: the compressed cross-pod mean,
+  ``elastic_remesh`` and ``reshard_tree`` over two gloo ranks
+  (``_torch_distributed.check_two_rank_training``).
 
 Tolerances (float32 throughout, sums taken in another order): attention
 outputs and gradients ``ATOL`` / ``RTOL``; loss and grad norm ``RTOL``;
@@ -44,6 +51,8 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from _torch_baselines import check_flops
+from _torch_distributed import check_grad_comp, check_two_rank_training
 from _torch_parity import release_jax_executables  # noqa: F401
 from repro import sparsity as RS
 from repro.configs import get_config as ref_config
@@ -262,7 +271,11 @@ def _batch(rng, cfg, B, S):
 
 def test_train_steps_match_reference():
     """Three AdamW steps of reduced gemma2-2b with Roaring block-sparse
-    global layers at S = 2048, from a state one reference step in."""
+    global layers at S = 2048, from a state one reference step in. Then
+    the train step's other parts against the reference: Roaring top-k
+    gradient compression (``grad_comp``, the one-rank cross-pod mean, a
+    ``grad_compression`` step), the sharding rules (``spec_for_path``) and
+    the analytic FLOP model (``models/flops.py``)."""
     rcfg, pcfg = _configs(attn_impl="sparse")
     S, B = 2048, 1
     lists = RS.compile_mask(RS.build_arch_mask(
@@ -296,12 +309,17 @@ def test_train_steps_match_reference():
                              jax.tree.leaves(rstate["opt"])):
             _close(_np(got), np.asarray(want), what + " state",
                    atol=P_ATOL)
+    check_grad_comp()
+    check_flops()
 
 
 def test_resilient_training_matches_uninterrupted(tmp_path):
     """``launch.train.main`` with one simulated failure: one restart, and
     the final parameters equal an uninterrupted run's, bit for bit; the
-    reference reads the port's checkpoints leaf for leaf."""
+    reference reads the port's checkpoints leaf for leaf. Then the
+    distributed layer that recovery and the cross-pod mean run on, over
+    two gloo ranks: the compressed cross-pod mean, ``elastic_remesh`` and
+    ``reshard_tree``."""
     argv = ["--arch", "gemma2-2b", "--reduced", "--steps", "6", "--batch",
             "2", "--seq", "64", "--ckpt-every", "2", "--log-every", "100",
             "--device", "cpu"]
@@ -325,3 +343,4 @@ def test_resilient_training_matches_uninterrupted(tmp_path):
     for got, want in zip(jax.tree.leaves(tree),
                          _tree.leaves(whole["state"])):
         assert np.array_equal(np.asarray(got), _np(want))
+    check_two_rank_training()
