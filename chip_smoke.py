@@ -37,6 +37,16 @@ paths of the port end to end:
   equal;
 * sharded search: ``PostingIndex.shard`` over a one-rank NCCL
   ``DeviceMesh``, the 96 top-k queries identical to the local index's;
+* the rest of the model registry: dbrx-132b at full width (8 of its 40
+  layers, bf16, 16 experts top-4) behind ``ServeEngine`` on the paged
+  cache, each engine step held to the dense-cache ``decode_step`` over the
+  same batch (a MoE's output depends on the batch it is routed with, so
+  teacher-forced ``forward`` is no oracle there); rwkv6-1.6b and
+  whisper-base (``encode`` over 256 stub frames) at full width and depth,
+  streamed through ``decode_step`` and held to teacher-forced ``forward``;
+  the reduced jamba, qwen2-vl, llama4, starcoder2 and stablelm-3b configs
+  on the card against the CPU; and the paged decode kernel at dbrx's and
+  starcoder2's head shapes;
 * gemma2-2b training with the Roaring top-k cross-pod gradient mean
   (``grad_compression``, ratio 0.01) under a one-rank ``("pod",)`` mesh,
   every leaf of step 0 checked against the top-k definition and the
@@ -111,6 +121,37 @@ LOGIT_ULP = 2.0 ** -7
 # (one ulp is 2**-7 below magnitude 2)
 BF16_ATOL = 1e-2
 F32_ATOL = 1e-5
+
+# the registry's other architectures. dbrx-132b at full width behind the
+# paged engine, cut to 8 of its 40 layers (bf16 weights, 6.52 GB a layer:
+# 40 would not fit the card's 80 GB), the gemma2 phase's traffic. Every
+# step's dense-cache replay routes as the engine step did, so its logits
+# are always compared. The paged kernel and the dense path round attention
+# at other places, and over 8 bf16 layers the router probabilities drift
+# apart: by up to 0.0103 over every row and layer with the default seed on
+# an H100, so they must agree within ROUTER_DRIFT, about twice that. Where
+# the replay would have chosen other experts for a row by itself, that
+# row's k-th and (k+1)-th router probabilities must lie within ROUTER_TIE
+# (a router near-tie; such gaps measured up to 1.73e-3 on an H100)
+DBRX_ARCH = "dbrx-132b"
+DBRX_LAYERS = 8
+DBRX_ENGINE = dict(max_batch=4, n_pages=64, page_size=16,
+                   max_pages_per_seq=4)
+DBRX_REQUESTS = 8
+ROUTER_DRIFT = 2e-2
+ROUTER_TIE = 5e-3
+# rwkv6-1.6b and whisper-base at full width and depth: 4 prompts streamed
+# through decode_step, STREAM_NEW greedy tokens each; whisper's encoder over
+# launch/specs.py's 256 stub frames
+STREAM_NEW = 16
+WHISPER_FRAMES = 256
+# the other reduced configs on the card against the CPU, f32 compute: sums
+# in another order on another device, through at most 8 layers
+REGISTRY_ARCHS = ("jamba-1.5-large-398b", "qwen2-vl-72b",
+                  "llama4-maverick-400b-a17b", "starcoder2-15b",
+                  "stablelm-3b")
+QWEN_PATCHES = 64             # launch/specs.py's vision stub patches
+REG_ATOL, REG_RTOL = 1e-4, 1e-3
 
 # the training phase: gemma2-2b at full width and depth, Roaring block-sparse
 # attention on the global layers; train_4k's sequence, batch cut 256 -> 1
@@ -1375,7 +1416,8 @@ def container_rows(torch, K, ops, ref, tr, store, records):
 def check_paged_decode(torch, pd_cases, SK, SR, seed):
     """The paged decode kernel against its plain version over
     ``cases.CHECK_GRID`` (G 1 / 2, D 64 / 256, pages of 8 / 16, softcap on
-    and off), in bf16 and f32, on two cases each: rows with ``starts > 0``,
+    and off; then every other (G, D) of the registry: 5 / 6 / 8 / 12 with
+    D 128, 1 with D 80), in bf16 and f32, on two cases each: rows with ``starts > 0``,
     an empty row (``counts = 0``, which must give zeros) and NaN in every
     page after a row's ``counts``; and rows across the kernel's split
     blocks (a window starting past the first split, a length ending one
@@ -1390,7 +1432,7 @@ def check_paged_decode(torch, pd_cases, SK, SR, seed):
             c = make(rng, G, D, page)
             if make is pd_cases.paged_decode_split_case and SK.decode_split(
                     *c["q"].shape[:2], c["page_idx"].shape[1] * page,
-                    n_sm) != pd_cases.DECODE_SPLIT:
+                    n_sm, G) != pd_cases.DECODE_SPLIT:
                 raise AssertionError("the split case no longer crosses the "
                                      "kernel's splits")
             t = {k: torch.from_numpy(v).cuda() for k, v in c.items()}
@@ -1659,7 +1701,8 @@ def serve_profile(torch, SV, LS, obs, cfg, params, eng, seed):
                   if sp.name == "serve.step") * 1e3
     wall_ms = wall * 1e3
     device = device_summary(p, wall_ms)
-    log(f"profile serve: 4 requests in {n} steps, wall {wall_ms:.1f} ms "
+    log(f"profile serve ({cfg.name}): 4 requests in {n} steps, wall "
+        f"{wall_ms:.1f} ms "
         f"({wall_ms / n:.2f} ms per step); serve.step spans {span_ms:.1f} "
         f"ms; {device} ({card_line()})")
 
@@ -1789,28 +1832,630 @@ def paged_decode_rows(torch, SK, SR, cfg, eng, largest, launches, seed,
                (lib, "scaled_dot_product_attention (gather excluded, no "
                 "softcap)"), old_ms=old)
 
-    Bc, L, ps = 32, 32_768, 16
+    decode_32k(torch, SK, SR, gen, flush, "one global layer", KVH, G, hd,
+               dt, cfg.attn_softcap)
+    return row
+
+
+def decode_32k(torch, SK, SR, gen, flush, what, KVH, G, D, dt, softcap,
+               Bc=32):
+    """The paged decode kernel at ``decode_32k``'s shape for one layer
+    with the batch cut from 128 to ``Bc`` (32,768 positions a sequence,
+    pages of 16, random page lists and K / V from ``gen``): its time, the
+    plain version's, the bound and ``scaled_dot_product_attention``'s,
+    logged and returned as a dict."""
+    L, ps = 32_768, 16
     n_pp = L // ps
     P = Bc * n_pp
     pidx = torch.randperm(P, generator=gen, device="cuda").to(torch.int32)
     pidx = pidx.reshape(Bc, n_pp).cpu().numpy()
-    kp = torch.randn((P, ps, KVH, hd), generator=gen, device="cuda",
-                     dtype=dt)
-    vp = torch.randn((P, ps, KVH, hd), generator=gen, device="cuda",
-                     dtype=dt)
-    q = torch.randn((Bc, KVH, G, hd), generator=gen, device="cuda").to(dt)
+    kp, vp = (torch.randn((P, ps, KVH, D), generator=gen, device="cuda",
+                          dtype=dt) for _ in range(2))
+    q = torch.randn((Bc, KVH, G, D), generator=gen, device="cuda").to(dt)
     full = np.full((Bc,), L, np.int32)
     err, ms, old, pms, lib, bound, n_live = measure_paged_decode(
         torch, SK, SR, q, kp, vp, pidx, np.full((Bc,), n_pp, np.int32), full,
-        np.zeros_like(full), cfg.attn_softcap, 10, flush)
-    log(f"paged_decode at decode_32k, one global layer, batch cut from 128 "
-        f"to {Bc} (KV {L} tokens, pools {2 * kp.numel() * kp.element_size() / 1e9:.2f} GB): "
-        f"{ms:.4f} ms card-opened (host-opened timer {old:.4f} ms; plain "
-        f"{pms:.3f} ms, bound {bound[0]:.4f} ms by "
-        f"{bound[1]}, scaled_dot_product_attention {lib:.4f} ms with the "
-        f"gather excluded and no softcap); max abs err {err:.3g}; "
-        f"{n_live} live positions, {splits(Bc, KVH, L)} ({card_line()})")
-    return row
+        np.zeros_like(full), softcap, 10, flush)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    split = SK.decode_split(Bc, KVH, L, n_sm, G)
+    chunks = -(-G // SK.GROUP_CHUNK)
+    log(f"paged_decode at decode_32k, {what} (KVH {KVH}, G {G} in {chunks} "
+        f"chunk(s) of query heads, D {D}, {dt}), batch cut from 128 to {Bc} "
+        f"(KV {L} tokens, pools "
+        f"{2 * kp.numel() * kp.element_size() / 1e9:.2f} GB): {ms:.4f} ms "
+        f"card-opened (host-opened timer {old:.4f} ms; plain {pms:.3f} ms, "
+        f"bound {bound[0]:.4f} ms by {bound[1]}, "
+        f"{100 * bound[0] / ms:.1f} % of it; scaled_dot_product_attention "
+        f"{lib:.4f} ms with the gather excluded and no softcap); max abs "
+        f"err {err:.3g}; {n_live} live positions, {split} positions a "
+        f"split, {Bc * KVH * chunks * -(-L // split)} split blocks "
+        f"({card_line()})")
+    return {"KVH": KVH, "G": G, "D": D, "batch": Bc, "kv_len": L, "ms": ms,
+            "plain_ms": pms, "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": lib, "max_abs_err": err}
+
+
+# =============================================================================
+# serving the rest of the registry: dbrx-132b (MoE) at full width on the
+# paged cache, rwkv6-1.6b and whisper-base over state / dense caches, and
+# the other reduced configs against their CPU runs
+# =============================================================================
+
+def paged_decode_registry(torch, SK, SR, seed):
+    """The paged decode kernel at ``decode_32k`` (``decode_32k``), bf16, no
+    softcap, at every (KVH, G, D) that the paged engine serves in the
+    registry other than gemma2-2b's (``paged_decode_rows`` measures it):
+    dbrx-132b's (8, 6, 128), starcoder2-15b's (4, 12, 128, two chunks of 6
+    query heads) and the rest, one entry a shape, named by its archs."""
+    from repro_torch.configs import get_config, list_archs
+    shapes = {}
+    for arch in list_archs():
+        c = get_config(arch)
+        if (arch != SERVE_ARCH
+                and all(k.startswith("attn") for k in c.block_kinds())):
+            key = (c.n_kv_heads, c.n_heads // c.n_kv_heads, c.hd)
+            shapes.setdefault(key, []).append(arch)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    flush = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device="cuda")
+    out = {}
+    for (KVH, G, D), archs in shapes.items():
+        name = " / ".join(archs)
+        out[name] = decode_32k(torch, SK, SR, gen, flush, f"{name}'s heads",
+                               KVH, G, D, torch.bfloat16, None)
+        torch.cuda.empty_cache()
+    del flush
+    torch.cuda.empty_cache()
+    return out
+
+
+def _route_spy(torch, PM, into, force=None):
+    """Wrap ``mlp.route`` so each call appends (the chosen experts as a
+    bool [N, E], the kept (token, expert) pairs as a bool [N, E], the gap
+    between each token's k-th and (k+1)-th router probability, the router
+    probabilities, route's output) to ``into``; returns the function that
+    unwraps it. The order of the k experts inside a token's top k changes
+    no slot (a token's pairs go to distinct experts), so it is not
+    compared. With ``force`` (another run's ``into``), the i-th call
+    routes as that run's i-th did: its gate indices, slots and keep mask,
+    with gate values from this call's own probabilities at those indices,
+    normalised as ``route`` does; ``into`` still records this call's own
+    choice."""
+    orig = PM.route
+
+    def spy(router, x, cfg, G=1):
+        out = orig(router, x, cfg, G)
+        probs, _, gate_idx, _, keep, C = out
+        N, E = probs.shape
+        tok = torch.arange(N, device=probs.device).repeat_interleave(
+            cfg.top_k)
+        chosen = torch.zeros((N, E), dtype=torch.bool, device=probs.device)
+        chosen[tok, gate_idx.reshape(-1)] = True
+        kept = torch.zeros_like(chosen)
+        kept[tok, gate_idx.reshape(-1)] = keep.reshape(-1)
+        top = torch.topk(probs, cfg.top_k + 1, dim=-1).values
+        into.append((chosen, kept,
+                     top[:, cfg.top_k - 1] - top[:, cfg.top_k], probs, out))
+        if force is not None:
+            _, _, f_idx, f_slot, f_keep, f_C = force[len(into) - 1][4]
+            if f_C != C:
+                raise AssertionError(f"forced routing of capacity {f_C} "
+                                     f"on a call of capacity {C}")
+            vals = torch.gather(probs, 1, f_idx)
+            vals = vals / torch.clamp(vals.sum(-1, keepdim=True), min=1e-9)
+            out = (probs, vals, f_idx, f_slot, f_keep, C)
+        return out
+    PM.route = spy
+
+    def undo():
+        PM.route = orig
+    return undo
+
+
+def _dense_from_pools(torch, pools, page_idx, counts):
+    """Dense per-row caches [n_sb, B, max_pages * page, KVH, hd] gathered
+    from the paged pools through each row's page list; positions past a
+    row's ``counts`` pages hold zeros."""
+    out = []
+    for pool in pools:
+        n_sb, _, ps = pool["k"].shape[:3]
+        B, mp = page_idx.shape
+        live = (torch.arange(mp * ps, device=page_idx.device)[None]
+                < counts[:, None].long() * ps)                  # [B, L]
+        c = {}
+        for k in ("k", "v"):
+            g = pool[k][:, page_idx.long()].reshape(n_sb, B, mp * ps,
+                                                    *pool[k].shape[3:])
+            c[k] = g * live[None, :, :, None, None].to(g.dtype)
+        out.append(c)
+    return out
+
+
+def dbrx_path(torch, T, PM, SV, LS, SK, obs, seed, device="cuda",
+              cfg=None):
+    """dbrx-132b at full width (8 of its 40 layers) behind ``ServeEngine``
+    on the paged cache, through the paged decode kernel at G = 6, D = 128.
+
+    A MoE's output depends on the batch it is routed with (capacity per
+    group), so teacher-forced ``forward`` is no oracle. Run 1 is timed.
+    Run 2 serves the same requests again and, after each engine step,
+    runs the dense-cache ``decode_step`` over the same batch rows, tokens,
+    positions and write mask, from caches gathered out of the engine's
+    pools, so its MoE routes the same tokens, and each of its layers
+    takes the engine layer's experts, slots and keep mask
+    (``_route_spy(force=)``). Every step's written row's logits are held
+    to the dense step's with the serving phase's tol(v) and near-tie rule;
+    every layer's router probabilities agree within ``ROUTER_DRIFT``; a
+    row for which the replay's own top k differs from the engine's is a
+    router near-tie (its k-th and (k+1)-th probability within
+    ``ROUTER_TIE``) and is counted. Both runs give the same tokens; every
+    page returns.
+    Between the two, ``serve_profile`` profiles a warm window of the timed
+    run's engine. ``device`` / ``cfg`` rehearse it on the CPU at a reduced
+    config (no profile)."""
+    from repro_torch.configs import get_config
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    if cfg is None:
+        cfg = dataclasses.replace(get_config(DBRX_ARCH),
+                                  n_layers=DBRX_LAYERS)
+    n_layers = cfg.n_layers
+    t0 = time.perf_counter()
+    params = T.init_lm(cfg, seed, device=device)
+    sync()
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    per_layer = sum(t.numel() * t.element_size()
+                    for t in _leaves(params["blocks"])) / n_layers
+    log(f"CUT: {cfg.name} at full width with {n_layers} of its 40 "
+        f"layers: {nbytes / 1e9:.2f} GB of {cfg.param_dtype} weights "
+        f"({per_layer / 1e9:.2f} GB a layer, "
+        f"{params['embed']['table'].numel() * 2 / 1e9:.2f} GB tied "
+        f"embedding); 40 layers would need "
+        f"{(nbytes + 32 * per_layer) / 1e9:.1f} GB of the card's 80 GB. "
+        f"d_model {cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads of "
+        f"{cfg.hd}, {cfg.n_experts} experts top-{cfg.top_k}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}; init "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def run(checked):
+        eng = SV.ServeEngine(cfg, params, device=device, **DBRX_ENGINE)
+        reqs = LS.make_requests(cfg, DBRX_REQUESTS, SERVE_NEW, seed)
+        if not checked:
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            SK.reset_launch_counts()
+            wall, _ = LS.serve(eng, reqs)
+            return eng, reqs, wall, dict(SK.launch_counts)
+        stats = {"steps": 0, "exact": 0, "logit_ties": [], "router_ties": [],
+                 "ratio": 0.0, "noise": 0.0, "tie_gap": 0.0}
+        orig = T.decode_step_paged
+
+        def decode(params_, pools, tok, pos, page_idx, counts, lengths, cfg_,
+                   write=None):
+            eng_routes, dense_routes, hidden = [], [], []
+            undo = _route_spy(torch, PM, eng_routes)
+            try:
+                logits, pools = orig(params_, pools, tok, pos, page_idx,
+                                     counts, lengths, cfg_, write=write)
+            finally:
+                undo()
+            dense = _dense_from_pools(torch, pools, page_idx, counts)
+            unembed = T.common.unembed
+
+            def keep(tbl, x, **kw):
+                hidden.append(x)
+                return unembed(tbl, x, **kw)
+            undo = _route_spy(torch, PM, dense_routes, force=eng_routes)
+            T.common.unembed = keep
+            try:
+                want, _ = T.decode_step(params_, dense, tok, pos, cfg_,
+                                        write=write)
+            finally:
+                undo()
+                T.common.unembed = unembed
+            _check_dbrx_step(torch, params_, logits, want, hidden[0], write,
+                             eng_routes, dense_routes, stats)
+            return logits, pools
+        T.decode_step_paged = decode
+        try:
+            LS.serve(eng, reqs)
+        finally:
+            T.decode_step_paged = orig
+        return eng, reqs, stats
+
+    eng, reqs, wall, launches = run(False)
+    peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else float("nan")
+    n_steps = eng.steps_run
+    fed = sum(len(r.prompt) - 1 + len(r.generated) for r in reqs)
+    gen = sum(len(r.generated) for r in reqs)
+    log(f"dbrx serve: {len(reqs)} requests (prompts "
+        f"{min(len(r.prompt) for r in reqs)}-"
+        f"{max(len(r.prompt) for r in reqs)} tokens, {SERVE_NEW} new each), "
+        f"max_batch {eng.max_batch}, page_size {eng.page_size}: {n_steps} "
+        f"steps ({fed} tokens fed, {gen} generated) in {wall:.2f} s = "
+        f"{gen / wall:.2f} generated tokens/s, {fed / wall:.1f} fed "
+        f"tokens/s, {1e3 * wall / n_steps:.2f} ms per step; "
+        f"max_memory_allocated {peak:.2f} GB; launches {launches} "
+        f"({card_line() if cuda else device})")
+    want = n_layers * n_steps
+    if launches["paged_decode"] != want:
+        raise AssertionError(f"paged_decode launched {launches['paged_decode']}"
+                             f" times, not {n_layers} layers x {n_steps} "
+                             "steps")
+    _all_pages_back(eng)
+    tokens = [r.generated for r in reqs]
+    if cuda:
+        serve_profile(torch, SV, LS, obs, cfg, params, eng, seed)
+    t = time.perf_counter()
+    eng2, reqs2, st = run(True)
+    if [r.generated for r in reqs2] != tokens:
+        raise AssertionError("dbrx: the checked run gave other tokens than "
+                             "the timed run")
+    _all_pages_back(eng2)
+    log(f"dbrx check against decode_step routed as the engine: all "
+        f"{st['steps']} steps' logits compared; {st['exact']} with a top-2 "
+        f"gap of at least {GAP_TOL} equal decode_step's argmax; "
+        f"{len(st['logit_ties'])} logit near-ties within tolerance (step, "
+        f"gap, behind, tolerance): {st['logit_ties']}; "
+        f"{len(st['router_ties'])} steps with a router near-tie, where the "
+        f"replay's own top {cfg.top_k} differs from the engine's (step, "
+        f"(layer, row, k-th / (k+1)-th gap)): {st['router_ties']}; largest "
+        f"such gap {st['tie_gap']:.4g} (at most {ROUTER_TIE}); router "
+        f"probabilities within {st['noise']:.4g} (at most {ROUTER_DRIFT}); "
+        f"max |engine top logit - decode_step logit for that token| at "
+        f"most {st['ratio']:.3f} of its tolerance; all pages back in the "
+        f"pool; {time.perf_counter() - t:.1f} s")
+    del params, eng, eng2
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return {"steps": n_steps, "ms_per_step": 1e3 * wall / n_steps,
+            "launches": launches["paged_decode"], "peak_gb": peak}
+
+
+def _all_pages_back(eng):
+    if eng.table.seq_pages or len(eng.table.free) != eng.table.n_pages:
+        raise AssertionError(f"{eng.cfg.name}: pages leaked, not every page "
+                             "is back in the pool")
+
+
+def _check_dbrx_step(torch, params, got, want, x, write, eng_routes,
+                     dense_routes, st):
+    """One engine step against the dense-cache step (``dbrx_path``)."""
+    st["steps"] += 1
+    step = st["steps"]
+    b = int(torch.nonzero(write)[0, 0])
+    # layer by layer (the replay routed as the engine): the router
+    # probabilities agree within ROUTER_DRIFT (the two paths round
+    # attention at other places); where the replay's own top k differs
+    # from the engine's, the row is a router near-tie
+    if len(eng_routes) != len(dense_routes):
+        raise AssertionError(f"dbrx step {step}: {len(eng_routes)} routed "
+                             f"layers against {len(dense_routes)}")
+    diff = []
+    for layer, (e, d) in enumerate(zip(eng_routes, dense_routes)):
+        noise = float((e[3] - d[3]).abs().max())
+        st["noise"] = max(st["noise"], noise)
+        if noise > ROUTER_DRIFT:
+            raise AssertionError(
+                f"dbrx step {step}: layer {layer}'s router probabilities "
+                f"differ by {noise:.4g} (more than {ROUTER_DRIFT})")
+        if torch.equal(e[0], d[0]):
+            if not torch.equal(e[1], d[1]):
+                raise AssertionError(f"dbrx step {step}: layer {layer} "
+                                     "chooses alike but keeps other pairs")
+            continue
+        for r in torch.nonzero((e[0] != d[0]).any(-1)).flatten().tolist():
+            gap = float(torch.minimum(e[2][r], d[2][r]))
+            st["tie_gap"] = max(st["tie_gap"], gap)
+            if gap >= ROUTER_TIE:
+                raise AssertionError(
+                    f"dbrx step {step}: layer {layer}'s replay would route "
+                    f"row {r} differently with a router gap of {gap:.4g} "
+                    f"(at least {ROUTER_TIE})")
+            diff.append((layer, r, round(gap, 6)))
+    if diff:
+        st["router_ties"].append((step, diff))
+    table = params["embed"]["table"]
+    e_row, d_row = got[b, 0].float(), want[b, 0].float()
+    tok = int(torch.argmax(e_row))
+    top2 = torch.topk(d_row, 2)
+    arg = int(top2.indices[0])
+    gap = float(top2.values[0] - top2.values[1])
+    xa = x[b, 0].float().abs()
+    tol_tok, tol_top = (LOGIT_ULP * float((xa * table[v].float().abs()).sum())
+                        for v in (tok, arg))
+    off = abs(float(e_row[tok]) - float(d_row[tok]))
+    st["ratio"] = max(st["ratio"], off / tol_tok)
+    if off > tol_tok:
+        raise AssertionError(f"dbrx step {step}: engine top logit "
+                             f"{float(e_row[tok]):.6g}, decode_step's logit "
+                             f"for it {float(d_row[tok]):.6g}, beyond "
+                             f"{tol_tok:.4g}")
+    if gap >= GAP_TOL:
+        if tok != arg:
+            raise AssertionError(f"dbrx step {step}: engine token {tok}, "
+                                 f"decode_step's argmax {arg} (gap "
+                                 f"{gap:.4g})")
+        st["exact"] += 1
+        return
+    behind = float(top2.values[0]) - float(d_row[tok])
+    if behind > tol_top + tol_tok:
+        raise AssertionError(f"dbrx step {step}: a near-tie (gap {gap:.4g}) "
+                             f"where decode_step's logit for the engine's "
+                             f"token is {behind:.4g} below its top, beyond "
+                             f"{tol_top + tol_tok:.4g}")
+    st["logit_ties"].append((step, round(gap, 5), round(behind, 5),
+                             round(tol_top + tol_tok, 5)))
+
+
+def stream_path(torch, T, cfg, params, prompts, memory=None,
+                device="cuda"):
+    """Stream ``prompts`` (one row each) through ``init_decode_caches`` /
+    ``decode_step``: prompt tokens, then ``STREAM_NEW`` greedy tokens a
+    row; then hold every step of every row to teacher-forced ``forward``
+    over the row's prompt and its own tokens with the serving phase's rule
+    (its top-2 gap, tol(v) from forward's final hidden state). Returns ms
+    per step over the steps after the first (the first call of a new
+    model also loads its kernels), which is logged apart."""
+    B = len(prompts)
+    lens = [len(p) for p in prompts]
+    n = max(lens) + STREAM_NEW - 1
+    seqs = [list(map(int, p)) for p in prompts]
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    caches = T.init_decode_caches(cfg, B, n, device=device)
+    tops = []
+    sync()
+    t0 = time.perf_counter()
+    for t in range(n):
+        tok = torch.tensor([[s[t] if t < len(s) else 0] for s in seqs],
+                           device=device)
+        pos = torch.full((B,), t, dtype=torch.int32, device=device)
+        logits, caches = T.decode_step(params, caches, tok, pos, cfg,
+                                       memory=memory)
+        top = torch.max(logits[:, 0].float(), dim=-1)
+        tops.append(top)
+        nxt = top.indices.tolist()
+        for b in range(B):
+            if lens[b] - 1 <= t and len(seqs[b]) < lens[b] + STREAM_NEW:
+                seqs[b].append(nxt[b])
+        if t == 0:
+            t1 = time.perf_counter()
+    sync()
+    first, wall = t1 - t0, time.perf_counter() - t1
+    top_val = torch.stack([t.values for t in tops], 1).cpu().numpy()
+    top_tok = torch.stack([t.indices for t in tops], 1).cpu().numpy()
+    # forward over each row's prompt and its own tokens but the last
+    fed = [s[:-1] for s in seqs]
+    tokens = np.zeros((B, max(map(len, fed))), np.int64)
+    for b, s in enumerate(fed):
+        tokens[b, :len(s)] = s
+    table = (params["embed"] if cfg.tie_embeddings
+             else params["unembed"])["table"]
+    hidden = []
+    unembed = T.common.unembed
+
+    def keep(tbl, x, **kw):
+        hidden.append(x)
+        return unembed(tbl, x, **kw)
+    T.common.unembed = keep
+    try:
+        f_all, _ = T.forward(params, torch.from_numpy(tokens).to(device),
+                             cfg, memory=memory)
+    finally:
+        T.common.unembed = unembed
+    x_all = hidden.pop()
+    exact = total = 0
+    near, ratio = [], 0.0
+    for b in range(B):
+        m = len(fed[b])
+        f = f_all[b, :m].float()
+        top2 = torch.topk(f, 2)
+        gap = (top2.values[:, 0] - top2.values[:, 1]).cpu().numpy()
+        arg = top2.indices[:, 0]
+        tok = torch.as_tensor(top_tok[b, :m], device=device)
+        at_tok = f.gather(1, tok[:, None])[:, 0]
+        xa = x_all[b, :m].float().abs()
+        tol_tok, tol_top = (LOGIT_ULP * (xa * table[v].float().abs()).sum(
+            1).cpu().numpy() for v in (tok, arg))
+        behind = (top2.values[:, 0] - at_tok).cpu().numpy()
+        at_tok, arg = at_tok.cpu().numpy(), arg.cpu().numpy()
+        off = np.abs(top_val[b, :m] - at_tok)
+        ratio = max(ratio, float((off / tol_tok).max()))
+        for k in range(m):
+            total += 1
+            if off[k] > tol_tok[k]:
+                raise AssertionError(
+                    f"{cfg.name} row {b} step {k}: decode_step's top logit "
+                    f"{top_val[b, k]:.6g}, forward's logit for its token "
+                    f"{at_tok[k]:.6g}, beyond {tol_tok[k]:.4g}")
+            if gap[k] >= GAP_TOL:
+                if top_tok[b, k] != arg[k]:
+                    raise AssertionError(
+                        f"{cfg.name} row {b} step {k}: decode_step's token "
+                        f"{top_tok[b, k]}, forward's argmax {arg[k]} (gap "
+                        f"{gap[k]:.4g})")
+                exact += 1
+            elif behind[k] > tol_top[k] + tol_tok[k]:
+                raise AssertionError(
+                    f"{cfg.name} row {b} step {k}: a near-tie (gap "
+                    f"{gap[k]:.4g}) where forward's logit for decode_step's "
+                    f"token is {behind[k]:.4g} below its top, beyond "
+                    f"{tol_top[k] + tol_tok[k]:.4g}")
+            else:
+                near.append((b, k, round(float(gap[k]), 5)))
+    log(f"{cfg.name} stream: {B} prompts ({min(lens)}-{max(lens)} tokens), "
+        f"{STREAM_NEW} new each, {n} decode_step calls: the first "
+        f"{1e3 * first:.1f} ms, the other {n - 1} in {wall:.2f} s = "
+        f"{1e3 * wall / (n - 1):.2f} ms per step "
+        f"({B * STREAM_NEW / (first + wall):.1f} generated tokens/s over "
+        f"all); against forward: all {total} row-steps "
+        f"compared, {exact} with a top-2 gap of at least {GAP_TOL} equal "
+        f"its argmax, {len(near)} near-ties within tolerance (row, step, "
+        f"gap): {near}; max |decode_step top logit - forward logit for that "
+        f"token| at most {ratio:.3f} of its tolerance "
+        f"({card_line() if device == 'cuda' else device})")
+    return 1e3 * wall / (n - 1)
+
+
+def decode_profile(torch, T, cfg, params, memory, n=8):
+    """``n`` warm ``decode_step`` calls of the stream's batch under
+    ``torch.profiler``: device busy time against the window's wall time and
+    the work that takes it (the profiler adds host time, so the idle share
+    is an upper bound)."""
+    from torch.profiler import ProfilerActivity, profile
+    B = 4 if memory is None else memory.shape[0]
+    caches = T.init_decode_caches(cfg, B, n + 1)
+    tok = torch.ones((B, 1), dtype=torch.long, device="cuda")
+
+    def step(t):
+        pos = torch.full((B,), t, dtype=torch.int32, device="cuda")
+        return T.decode_step(params, caches, tok, pos, cfg, memory=memory)
+    step(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for t in range(1, n + 1):
+            logits, _ = step(t)
+            logits.argmax(-1).tolist()          # the stream's host sync
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    log(f"profile {cfg.name} decode_step: {n} steps of batch {B}, wall "
+        f"{wall_ms:.1f} ms ({wall_ms / n:.2f} ms per step); "
+        f"{device_summary(prof, wall_ms)} ({card_line()})")
+
+
+def state_paths(torch, T, seed, device="cuda", cfgs=None):
+    """rwkv6-1.6b and whisper-base at full width and depth: 4 prompts each
+    streamed through ``decode_step`` (whisper with ``encode``'s memory over
+    ``WHISPER_FRAMES`` stub frames), held to ``forward``. ``device`` /
+    ``cfgs`` rehearse it on the CPU at reduced configs."""
+    from repro_torch.configs import get_config
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    out = {}
+    for cfg in cfgs or [get_config(a) for a in ("rwkv6-1.6b",
+                                                 "whisper-base")]:
+        arch = cfg.name
+        t0 = time.perf_counter()
+        params = T.init_lm(cfg, seed, device=device)
+        rng = np.random.default_rng(seed)
+        prompts = [rng.integers(1, cfg.vocab, n) for n in (4, 7, 9, 11)]
+        memory = None
+        if cfg.layer_pattern == "encdec":
+            gen = torch.Generator(device=device).manual_seed(seed)
+            frames = torch.randn((len(prompts), WHISPER_FRAMES, cfg.d_model),
+                                 generator=gen, device=device)
+            sync()
+            t = time.perf_counter()
+            memory = T.encode(params, frames, cfg)
+            sync()
+            log(f"{arch} encode: {WHISPER_FRAMES} stub frames x "
+                f"{len(prompts)} in {1e3 * (time.perf_counter() - t):.1f} "
+                f"ms, memory {tuple(memory.shape)} {memory.dtype}")
+        n_params = sum(t.numel() for t in _leaves(params))
+        log(f"{arch}: full width and depth, {cfg.n_layers} layers, d_model "
+            f"{cfg.d_model}, vocab {cfg.vocab}, {n_params / 1e9:.3f} B "
+            f"{cfg.param_dtype} parameters, compute {cfg.compute_dtype}")
+        out[arch] = stream_path(torch, T, cfg, params, prompts, memory,
+                                device)
+        if cuda:
+            decode_profile(torch, T, cfg, params, memory)
+        log(f"{arch} phase: {time.perf_counter() - t0:.1f} s")
+        del params, memory
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    return out
+
+
+def registry_path(torch, T, SK, tree_map, seed):
+    """The reduced configs of jamba, qwen2-vl (``QWEN_PATCHES`` stub patch
+    embeddings), llama4, starcoder2 and stablelm-3b in f32 compute on the
+    card against the same calls on the CPU from the same parameters:
+    ``forward``, ``lm_loss``, two ``decode_step`` calls and, on
+    attention-only patterns, one ``decode_step_paged`` through the paged
+    decode kernel (one launch a layer), within ``REG_ATOL`` / ``REG_RTOL``."""
+    from repro_torch.configs import get_config
+
+    def close(what, got, want):
+        g, w = got.float().cpu().numpy(), want.float().numpy()
+        err = float(np.abs(g - w).max())
+        if not np.allclose(g, w, atol=REG_ATOL, rtol=REG_RTOL):
+            raise AssertionError(f"{what}: card and CPU differ by up to "
+                                 f"{err:.3g}")
+        return err
+
+    rng = np.random.default_rng(seed)
+    SK.reset_launch_counts()
+    want_launches, worst = 0, 0.0
+    for arch in REGISTRY_ARCHS:
+        cfg = dataclasses.replace(get_config(arch, reduced=True),
+                                  compute_dtype="float32")
+        cpu = T.init_lm(cfg, seed, device="cpu")
+        card = tree_map(lambda t: t.to("cuda"), cpu)
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 16)))
+        extra = None
+        if cfg.frontend == "vision":
+            extra = torch.from_numpy(rng.standard_normal(
+                (2, QWEN_PATCHES, cfg.d_model)).astype(np.float32))
+        res = {}
+        for dev, p in (("cpu", cpu), ("cuda", card)):
+            ex = None if extra is None else extra.to(dev)
+            tk = tokens.to(dev)
+            logits, aux = T.forward(p, tk, cfg, extra_embeds=ex)
+            loss = T.lm_loss(p, tk, tk.roll(-1, 1), cfg, extra_embeds=ex)
+            caches = T.init_decode_caches(cfg, 2, 8, device=dev)
+            steps = []
+            for s in range(2):
+                pos = torch.tensor([1 + s, 5 + s], device=dev)
+                lg, caches = T.decode_step(p, caches, tk[:, s:s + 1], pos,
+                                           cfg)
+                steps.append(lg)
+            res[dev] = [logits, aux, loss, *steps]
+            if all(k.startswith("attn") for k in cfg.block_kinds()):
+                res[dev].append(_paged_step(torch, T, cfg, p, dev, seed))
+        names = ["forward", "aux", "lm_loss", "decode_step 0",
+                 "decode_step 1", "decode_step_paged"]
+        for name, got, want in zip(names, res["cuda"], res["cpu"]):
+            worst = max(worst, close(f"{arch} {name}", got, want))
+        if len(res["cuda"]) == len(names):
+            want_launches += cfg.n_layers
+        del cpu, card
+    launches = SK.launch_counts["paged_decode"]
+    log(f"registry (reduced, f32 compute, card vs CPU): "
+        f"{', '.join(REGISTRY_ARCHS)}: forward (qwen2-vl with "
+        f"{QWEN_PATCHES} stub patches), lm_loss, two decode_step calls and "
+        f"one decode_step_paged on the attention-only ones agree to "
+        f"{worst:.3g} (tolerance {REG_ATOL} + {REG_RTOL} x |value|); "
+        f"paged_decode launches {launches} (one a layer: {want_launches})")
+    if launches != want_launches:
+        raise AssertionError("decode_step_paged did not launch paged_decode "
+                             "once a layer")
+    return launches
+
+
+def _paged_step(torch, T, cfg, params, dev, seed, page=4):
+    """One ``decode_step_paged`` over random pools (seeded, the same on
+    every device), each row writing into a page of its own."""
+    rng = np.random.default_rng(seed)
+    pos = np.asarray([6, 13], np.int32)
+    counts = (pos // page + 1).astype(np.int32)
+    P = int(counts.sum()) + 3
+    perm = rng.permutation(P)
+    page_idx = np.zeros((2, 8), np.int32)
+    page_idx[0, :counts[0]] = perm[:counts[0]]
+    page_idx[1, :counts[1]] = perm[counts[0]:counts.sum()]
+    pools = [{k: torch.from_numpy(rng.standard_normal(
+        (cfg.n_superblocks, P, page, cfg.n_kv_heads, cfg.hd)).astype(
+            np.float32)).to(dev) for k in ("k", "v")}
+        for _ in cfg.block_kinds()]
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 1))).to(dev)
+
+    def t(a):
+        return torch.from_numpy(a).to(dev)
+    logits, _ = T.decode_step_paged(params, pools, tok, t(pos), t(page_idx),
+                                    t(counts), t(pos), cfg)
+    return logits
 
 
 # =============================================================================
@@ -2610,6 +3255,8 @@ def main(argv=None) -> int:
     from repro_torch.kernels.sparse_attn import ref as SR
     from repro_torch.launch import serve as LS
     from repro_torch.launch import train as LT
+    from repro_torch._tree import tree_map
+    from repro_torch.models import mlp as PM
     from repro_torch.models import transformer as T
     from repro_torch.runtime import simulate_failure
     from repro_torch import train as TR
@@ -2688,6 +3335,22 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"serve phases: {time.perf_counter() - t:.1f} s")
+
+    t = time.perf_counter()
+    registry = {"shapes": paged_decode_registry(torch, SK, SR, args.seed)}
+    registry["dbrx_launches"] = dbrx_path(torch, T, PM, SV, LS, SK, obs,
+                                          args.seed)["launches"]
+    log(f"dbrx phase: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    state_paths(torch, T, args.seed)
+    registry["registry_launches"] = registry_path(torch, T, SK, tree_map,
+                                                  args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"rwkv6, whisper and reduced registry phases: "
+        f"{time.perf_counter() - t:.1f} s")
+    log(f"paged_decode beyond gemma2 (JSON; {card_line()}): "
+        + json.dumps(registry))
 
     t = time.perf_counter()
     cfg = dataclasses.replace(get_config(TRAIN_ARCH), attn_impl="sparse")

@@ -34,9 +34,15 @@ import numpy as np
 
 # (G, D, page_size, softcap) of the card's check: one and two query heads
 # per KV head, stablelm's and gemma2's head dims, two page sizes, softcap
-# on and off
+# on and off; then the registry's other (G, D) pairs (llama4 5 / 128, dbrx
+# 6 / 128, qwen2-vl 8 / 128, starcoder2 12 / 128, stablelm-3b 1 / 80: bf16
+# rows of 160 bytes, 10 vectors of 16), each at both page sizes, softcap
+# off at 16 and on at 8
+REGISTRY_PAIRS = ((5, 128), (6, 128), (8, 128), (12, 128), (1, 80))
 CHECK_GRID = tuple((G, D, page, softcap) for G in (1, 2) for D in (64, 256)
-                   for page in (8, 16) for softcap in (None, 50.0))
+                   for page in (8, 16) for softcap in (None, 50.0)) + tuple(
+    (G, D, page, softcap) for G, D in REGISTRY_PAIRS
+    for page, softcap in ((16, None), (8, 50.0)))
 
 
 # positions per split block that paged_decode.cu takes for the split case

@@ -19,7 +19,12 @@
 // the live K/V bytes (plus q and out) over 3.35 TB/s.
 //
 // Design: split-KV flash decoding, two launches.
-//   * `split_kernel`: grid (split, KV head, sequence). Split s owns positions
+//   * `split_kernel`: grid (split, KV head x query-head chunk, sequence).
+//     A block serves a chunk of at most gc_len <= 8 query heads of its KV
+//     head (the host picks gc_len); G up to 16 (starcoder2-15b's 12) splits
+//     into ceil(G / gc_len) equal chunks, each a block that reads the KV
+//     head's K / V itself (the chunks of a head are neighbours in the grid,
+//     so the later reads mostly hit L2). Split s owns positions
 //     [s * split_len, (s + 1) * split_len) and walks only their part inside
 //     [max(starts, 0), min(lengths, counts * page_size)); a split with no
 //     live position writes an empty partial (l = 0) and exits. The wrapper
@@ -28,7 +33,7 @@
 //     batch of 4 and at decode_32k.
 //   * Inside a split there is no block barrier until the end. Each of the
 //     4 warps walks its own tiles of 8 positions (4 when G = 8) and runs its
-//     own online softmax over them for all G query heads of the KV head. A
+//     own online softmax over them for all the block's query heads. A
 //     lane owns 8 columns of every row (a 16-byte bf16 vector, two of f32),
 //     keeps q and acc[G][its columns] in f32 registers and forms partial
 //     q.k sums for the tile's G x 8 scores; a reduce-scatter over the warp
@@ -60,7 +65,8 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kStages = 3;                // tiles in each warp's ring
-constexpr int kMaxG = 8;                  // query heads per KV head
+constexpr int kMaxG = 8;                  // query heads of one block
+constexpr int kMaxGroup = 16;             // query heads per KV head
 constexpr int kMaxD = 256;                // head dim
 constexpr float kNegInf = -1e30f;
 
@@ -133,7 +139,7 @@ static_assert(split_smem_bytes<8, 1>() >=
                   (int)sizeof(float) * kWarps * (kMaxG * kMaxD + 2 * kMaxG),
               "the merge must fit in the rings");
 
-// kG: query heads rounded up to 1 / 2 / 4 / 8 (G <= kG at run time);
+// kG: a chunk's query heads rounded up to 1 / 2 / 4 / 8 (gc_len <= kG);
 // kVPL: 16-byte vectors of a row per lane (1, or 2 for f32 rows past 128)
 template <typename T, int kG, int kVPL>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -144,13 +150,16 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
              const int32_t* __restrict__ starts, float* __restrict__ ws_ml,
              float* __restrict__ ws_acc, int KVH, int G, int D, int P,
              int page_size, int max_pages, int split_len, int n_splits,
-             float scale, float softcap) {
+             int n_gc, int gc_len, float scale, float softcap) {
   constexpr int kN = 16 / sizeof(T);      // elements per vector
   constexpr int kE = kVPL * kN;           // columns per lane
   constexpr int kT = tile_positions<kG>();
   constexpr int kNV = kT * kG;            // scores per tile
   extern __shared__ __align__(16) unsigned char smem[];
-  const int s = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int s = blockIdx.x, h = blockIdx.y / n_gc, b = blockIdx.z;
+  // this block's query heads: g0 .. g0 + Gc - 1 of the KV head's G
+  const int g0 = (blockIdx.y % n_gc) * gc_len;
+  const int Gc = min(G - g0, gc_len);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const size_t bh = (size_t)b * KVH + h;
   const size_t part = bh * n_splits + s;
@@ -159,9 +168,9 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   const int lo = max(max(starts[b], 0), s * split_len);
   const int hi = min(min(lengths[b], cnt * page_size), (s + 1) * split_len);
   if (hi <= lo) {                          // nothing live: an empty partial
-    if (tid < G) {
-      ws_ml[(part * G + tid) * 2] = kNegInf;
-      ws_ml[(part * G + tid) * 2 + 1] = 0.f;
+    if (tid < Gc) {
+      ws_ml[(part * G + g0 + tid) * 2] = kNegInf;
+      ws_ml[(part * G + g0 + tid) * 2 + 1] = 0.f;
     }
     return;
   }
@@ -172,13 +181,13 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
 
   // this lane's columns of q: vectors lane, lane + 32
   float qr[kG][kE];
-  const T* qb = q + bh * G * D;
+  const T* qb = q + (bh * G + g0) * D;
 #pragma unroll
   for (int g = 0; g < kG; ++g)
 #pragma unroll
     for (int j = 0; j < kVPL; ++j) {
       const int v = lane + j * 32;
-      if (g < G && v < vpr) {
+      if (g < Gc && v < vpr) {
         load16<T>(qb + g * D + v * kN, qr[g] + j * kN);
       } else {
 #pragma unroll
@@ -284,7 +293,7 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     for (int o = kNV; o < 32; o <<= 1) x += __shfl_xor_sync(~0u, x, o);
 
     // online softmax over the tile: the kT lanes of one g together
-    const bool ok = (live >> my_t & 1) && my_g < G;
+    const bool ok = (live >> my_t & 1) && my_g < Gc;
     x *= scale;
     if (softcap > 0.f) x = softcap * tanhf(x / softcap);
     x = ok ? x : kNegInf;
@@ -336,7 +345,7 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   // warp is past its loop)
   __syncthreads();
   float* sML = reinterpret_cast<float*>(smem);          // [kWarps][kG][2]
-  float* sAcc = sML + kWarps * kG * 2;                   // [kWarps][G][D]
+  float* sAcc = sML + kWarps * kG * 2;                   // [kWarps][Gc][D]
 #pragma unroll
   for (int g = 0; g < kG; ++g) {
     const float mg = __shfl_sync(~0u, m_run, g * kT);
@@ -348,19 +357,19 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   }
 #pragma unroll
   for (int g = 0; g < kG; ++g) {
-    if (g >= G) break;
+    if (g >= Gc) break;
 #pragma unroll
     for (int j = 0; j < kVPL; ++j) {
       const int v = lane + j * 32;
       if (v < vpr) {
 #pragma unroll
         for (int e = 0; e < kN; ++e)
-          sAcc[(warp * G + g) * D + v * kN + e] = acc[g][j * kN + e];
+          sAcc[(warp * Gc + g) * D + v * kN + e] = acc[g][j * kN + e];
       }
     }
   }
   __syncthreads();
-  for (int i = tid; i < G * D; i += kThreads) {
+  for (int i = tid; i < Gc * D; i += kThreads) {
     const int g = i / D;
     float mx = kNegInf;
 #pragma unroll
@@ -370,12 +379,12 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     for (int w = 0; w < kWarps; ++w) {
       const float c = expf(sML[(w * kG + g) * 2] - mx);
       sum += sML[(w * kG + g) * 2 + 1] * c;
-      a += sAcc[(w * G + g) * D + i % D] * c;
+      a += sAcc[(w * Gc + g) * D + i % D] * c;
     }
-    ws_acc[part * G * D + i] = a;
+    ws_acc[(part * G + g0) * D + i] = a;
     if (i % D == 0) {
-      ws_ml[(part * G + g) * 2] = mx;
-      ws_ml[(part * G + g) * 2 + 1] = sum;
+      ws_ml[(part * G + g0 + g) * 2] = mx;
+      ws_ml[(part * G + g0 + g) * 2 + 1] = sum;
     }
   }
 }
@@ -445,19 +454,21 @@ int launch_split(const void* q, const void* kp, const void* vp,
                  const void* lengths, const void* starts, float* ws_ml,
                  float* ws_acc, int B, int KVH, int G, int D, int P,
                  int page_size, int max_pages, int split_len, int n_splits,
-                 float scale, float softcap, cudaStream_t stream) {
+                 int n_gc, int gc_len, float scale, float softcap,
+                 cudaStream_t stream) {
   constexpr int smem = split_smem_bytes<kG, kVPL>();
   cudaError_t err = cudaFuncSetAttribute(
       split_kernel<T, kG, kVPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return (int)err;
-  split_kernel<T, kG, kVPL><<<dim3(n_splits, KVH, B), kThreads, smem,
+  split_kernel<T, kG, kVPL><<<dim3(n_splits, KVH * n_gc, B), kThreads, smem,
                               stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp),
       static_cast<const T*>(vp), static_cast<const int32_t*>(page_idx),
       static_cast<const int32_t*>(counts), static_cast<const int32_t*>(lengths),
       static_cast<const int32_t*>(starts), ws_ml, ws_acc, KVH, G, D, P,
-      page_size, max_pages, split_len, n_splits, scale, softcap);
+      page_size, max_pages, split_len, n_splits, n_gc, gc_len, scale,
+      softcap);
   return (int)cudaGetLastError();
 }
 
@@ -467,14 +478,17 @@ int launch_g(const void* q, const void* kp, const void* vp,
              const void* starts, float* ws_ml, float* ws_acc, int B, int KVH,
              int G, int D, int P, int page_size, int max_pages, int split_len,
              int n_splits, float scale, float softcap, cudaStream_t s) {
+  // ceil(G / kMaxG) chunks of equal size (12 -> 6 + 6)
+  const int n_gc = (G + kMaxG - 1) / kMaxG;
+  const int gc_len = (G + n_gc - 1) / n_gc;
 #define PAGED_DECODE_G(KG)                                                   \
   return launch_split<T, KG, kVPL>(q, kp, vp, page_idx, counts, lengths,    \
                                    starts, ws_ml, ws_acc, B, KVH, G, D, P,  \
                                    page_size, max_pages, split_len,         \
-                                   n_splits, scale, softcap, s)
-  if (G <= 1) PAGED_DECODE_G(1);
-  if (G <= 2) PAGED_DECODE_G(2);
-  if (G <= 4) PAGED_DECODE_G(4);
+                                   n_splits, n_gc, gc_len, scale, softcap, s)
+  if (gc_len <= 1) PAGED_DECODE_G(1);
+  if (gc_len <= 2) PAGED_DECODE_G(2);
+  if (gc_len <= 4) PAGED_DECODE_G(4);
   PAGED_DECODE_G(8);
 #undef PAGED_DECODE_G
 }
@@ -521,14 +535,15 @@ int launch(const void* q, const void* kp, const void* vp, const void* page_idx,
 // dtype: 0 = float32, 1 = bfloat16 (q, the pools and out share it). ws:
 // B * KVH * n_splits * G * (D + 2) floats, n_splits = ceil(max_pages *
 // page_size / split_len): (m, l) of every partial, then acc[D] of every
-// partial. softcap <= 0 means no softcap. Returns a cudaError_t code.
+// partial. G above kMaxG runs as ceil(G / kMaxG) chunks of blocks. softcap
+// <= 0 means no softcap. Returns a cudaError_t code.
 extern "C" int sparse_attn_paged_decode(
     const void* q, const void* k_pages, const void* v_pages,
     const void* page_idx, const void* counts, const void* lengths,
     const void* starts, void* out, void* ws, int B, int KVH, int G, int D,
     int P, int page_size, int max_pages, int split_len, float scale,
     float softcap, int dtype, void* stream) {
-  if (G < 1 || G > kMaxG || D < 1 || D > kMaxD || page_size < 1 ||
+  if (G < 1 || G > kMaxGroup || D < 1 || D > kMaxD || page_size < 1 ||
       max_pages < 1 || split_len < 1 ||
       (long long)max_pages * page_size > 0x7fffffffLL - split_len)
     return (int)cudaErrorInvalidValue;

@@ -19,10 +19,14 @@ from .. import build as _build
 
 __all__ = ["launch_counts", "reset_launch_counts", "paged_decode_cuda",
            "sparse_flash_attention_cuda", "decode_split", "MAX_GROUP",
-           "MAX_HEAD_DIM", "DECODE_SPLITS", "FLASH_HEAD_DIMS", "FLASH_Q_TILE",
-           "FLASH_KV_TILE"]
+           "GROUP_CHUNK", "MAX_HEAD_DIM", "DECODE_SPLITS", "FLASH_HEAD_DIMS",
+           "FLASH_Q_TILE", "FLASH_KV_TILE"]
 
-MAX_GROUP = 8           # query heads per KV head (kMaxG in the source)
+MAX_GROUP = 16          # query heads per KV head (kMaxGroup in the source)
+# the most query heads one split block serves (kMaxG in the source); a
+# larger G runs as ceil(G / GROUP_CHUNK) equal chunks of blocks, each
+# reading the KV head's K / V
+GROUP_CHUNK = 8
 MAX_HEAD_DIM = 256      # kMaxD in the source
 # paged_decode.cu: the positions one split block may own, largest first, and
 # the blocks per SM the split length is cut down for
@@ -74,14 +78,17 @@ def _check(t: torch.Tensor, dtype, name: str, device) -> None:
         raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def decode_split(B: int, KVH: int, positions: int, n_sm: int) -> int:
+def decode_split(B: int, KVH: int, positions: int, n_sm: int,
+                 G: int = 1) -> int:
     """Positions per split block of ``paged_decode_cuda``: the largest of
     ``DECODE_SPLITS`` that still gives ``DECODE_BLOCKS_PER_SM`` blocks per
     SM over the ``positions`` (``page_idx.shape[1] * page_size``) of every
-    (sequence, KV head), else the smallest. Known on the host from shapes
-    alone, so the wrapper never waits on ``lengths``."""
+    (sequence, KV head, chunk of ``GROUP_CHUNK`` of the ``G`` query heads),
+    else the smallest. Known on the host from shapes alone, so the wrapper
+    never waits on ``lengths``."""
+    rows = B * KVH * -(-G // GROUP_CHUNK)
     for n in DECODE_SPLITS[:-1]:
-        if B * KVH * -(-positions // n) >= DECODE_BLOCKS_PER_SM * n_sm:
+        if rows * -(-positions // n) >= DECODE_BLOCKS_PER_SM * n_sm:
             return n
     return DECODE_SPLITS[-1]
 
@@ -106,8 +113,9 @@ def paged_decode_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     q: [B, KVH, G, D] float32 or bfloat16; k_pages / v_pages: [P,
     page_size, KVH, D] of q's dtype; page_idx: int32[B, max_pages] with ids
     in [0, P) in the first ``counts[b]`` entries; counts / lengths / starts:
-    int32[B]. Returns out [B, KVH, G, D] in q's dtype. G <= 8, D <= 256 and
-    D * itemsize a multiple of 16 bytes. Two launches (the split blocks and
+    int32[B]. Returns out [B, KVH, G, D] in q's dtype. G <= 16 (above 8 in
+    chunks of blocks, ``GROUP_CHUNK``), D <= 256 and D * itemsize a
+    multiple of 16 bytes. Two launches (the split blocks and
     their combine) over an f32 workspace that this wrapper allocates; one
     count.
     """
@@ -138,7 +146,7 @@ def paged_decode_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     if softcap is not None and softcap <= 0:
         raise ValueError("softcap must be positive")
     max_pages = page_idx.shape[1]
-    split = decode_split(B, KVH, max_pages * page_size, _sm_count(dev))
+    split = decode_split(B, KVH, max_pages * page_size, _sm_count(dev), G)
     n_splits = -(-max_pages * page_size // split)
     # per (sequence, KV head, split, query head): (m, l), then acc[D]
     ws = torch.empty(B * KVH * n_splits * G * (D + 2), dtype=torch.float32,

@@ -1,9 +1,13 @@
 """Serving driver: batched requests against the Roaring-paged KV cache.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch dbrx-132b \
         --reduced --device cpu
 
+``--arch`` takes every architecture of the registry; the paged engine
+serves the attention-only ones (every pattern but jamba's Mamba hybrid and
+RWKV6, which decode over state caches with ``models.transformer.
+decode_step``) and raises for the others, as the reference's engine does.
 Runs on the card unless ``--device cpu`` is given. Weights are random,
 drawn from ``--seed``.
 """

@@ -5,7 +5,9 @@ The Roaring path consumes packed block lists produced by
 ``repro_torch.sparsity.compile_mask``: at train time through
 ``kernels.sparse_attn.sparse_attention`` (the hand-written CUDA kernel for
 CUDA tensors, its plain version for CPU tensors), at decode time through
-the Roaring-paged KV cache (``transformer.decode_step_paged``).
+the Roaring-paged KV cache (``transformer.decode_step_paged``). Single-token
+decode against a dense KV cache (``attention_decode``) and the encoder-decoder
+``cross_attention`` are plain torch, as in the reference.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.distributed import context as dctx
 from repro_torch.kernels.sparse_attn import sparse_attention
 
 from . import common
@@ -36,10 +39,12 @@ def _project_qkv(params, x, cfg: ModelConfig, positions):
     k = torch.einsum("bsd,dhk->bshk", x, params["wk"].to(x.dtype))
     v = torch.einsum("bsd,dhk->bshk", x, params["wv"].to(x.dtype))
     if cfg.mrope_sections is not None:
-        raise NotImplementedError("M-RoPE (qwen2-vl) is not ported yet; see "
-                                  "ROADMAP.md queue 1")
-    q = common.apply_rope(q, positions, cfg.rope_theta)
-    k = common.apply_rope(k, positions, cfg.rope_theta)
+        pos3 = positions[..., None].expand(*positions.shape, 3)
+        q = common.apply_mrope(q, pos3, cfg.rope_theta, cfg.mrope_sections)
+        k = common.apply_mrope(k, pos3, cfg.rope_theta, cfg.mrope_sections)
+    else:
+        q = common.apply_rope(q, positions, cfg.rope_theta)
+        k = common.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
@@ -234,4 +239,73 @@ def attention(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     else:
         out = _dense_attn(q, k, v, cfg, causal=causal,
                           window=cfg.window if local else None)
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
+
+
+def attention_decode(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
+                     cache_k: torch.Tensor, cache_v: torch.Tensor,
+                     pos: torch.Tensor, layer_kind: str = "attn_mlp",
+                     write: Optional[torch.Tensor] = None):
+    """Single-token decode against a dense KV cache.
+
+    x: [B, 1, d]; cache_k / cache_v: [B, S_max, KVH, hd]; pos: int[B]
+    current index. Returns ``(out [B, 1, d], cache_k, cache_v)``; the caches
+    are updated **in place** (the reference returns new ones) and returned.
+    The write lands at ``pos`` clamped to ``[0, S_max - 1]``, as the
+    reference's ``dynamic_update_slice`` clamps it, and the row attends to
+    positions ``<= pos``. ``write`` (bool[B]; default every row, the
+    reference's behaviour) selects the rows whose K/V is stored; a row left
+    out stores nothing and attends to positions ``< pos``, as a row of
+    ``transformer.decode_step_paged`` that does not write does.
+    """
+    B = x.shape[0]
+    dev = x.device
+    pos = pos.to(dev).long()
+    q, k, v = _project_qkv(params, x, cfg, pos[:, None])
+    S_max, KVH = cache_k.shape[1], cache_k.shape[2]
+    H, hd = q.shape[2], q.shape[3]
+    rows = (torch.arange(B, device=dev) if write is None
+            else torch.nonzero(write.to(dev)).flatten())
+    at = torch.clamp(pos, 0, S_max - 1)[rows]
+    cache_k[rows, at] = k[rows, 0].to(cache_k.dtype)
+    cache_v[rows, at] = v[rows, 0].to(cache_v.dtype)
+    group = H // KVH
+    scale = hd ** -0.5
+    # sequence-parallel long-context decode keeps the scores sharded along
+    # the cache's sequence dim, as the reference pins them
+    seq_parallel = S_max >= (1 << 17)
+    qg = q.reshape(B, KVH, group, hd)
+    s = torch.einsum("bkgd,bskd->bkgs", qg.float(), cache_k.float()) * scale
+    if seq_parallel:
+        s = dctx.constrain(s, (None, None, None, "all"))
+    if cfg.attn_softcap is not None:
+        s = cfg.attn_softcap * torch.tanh(s / cfg.attn_softcap)
+    last = pos if write is None else pos - (~write.to(dev)).long()
+    cols = torch.arange(S_max, device=dev)[None, :]
+    live = cols <= last[:, None]
+    if "local" in layer_kind:
+        live &= cols > (pos[:, None] - cfg.window)
+    s = torch.where(live[:, None, None, :], s,
+                    torch.tensor(NEG_INF, device=dev))
+    p = torch.softmax(s, dim=-1)
+    if seq_parallel:
+        p = dctx.constrain(p, (None, None, None, "all"))
+    out = torch.einsum("bkgs,bskd->bkgd", p, cache_v.float())
+    out = out.reshape(B, 1, H, hd).to(x.dtype)
+    return (torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype)),
+            cache_k, cache_v)
+
+
+def cross_attention(params: dict, x: torch.Tensor, memory: torch.Tensor,
+                    cfg: ModelConfig) -> torch.Tensor:
+    """Encoder-decoder cross attention (whisper): q from x, k / v from
+    memory (in the wider of memory's and x's dtypes, as the reference's
+    einsum promotes)."""
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(x.dtype))
+    mdt = torch.promote_types(memory.dtype, x.dtype)
+    k = torch.einsum("bsd,dhk->bshk", memory.to(mdt),
+                     params["wk"].to(x.dtype).to(mdt))
+    v = torch.einsum("bsd,dhk->bshk", memory.to(mdt),
+                     params["wv"].to(x.dtype).to(mdt))
+    out = _dense_attn(q, k, v, cfg, causal=False)
     return torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))

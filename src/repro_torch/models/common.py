@@ -1,4 +1,4 @@
-"""Shared model components: norms, embeddings, RoPE, initializers.
+"""Shared model components: norms, embeddings, RoPE / M-RoPE, initializers.
 
 Parameters are plain dicts of tensors; every component is an ``init`` that
 takes an explicit ``torch.Generator`` plus a pure ``apply(params, x) -> y``.
@@ -22,17 +22,43 @@ def dtype_of(name: str) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
 
 
+# the most float32 elements a draw holds at once before it is cast to a
+# narrower parameter dtype (1 GiB)
+_DRAW_ELEMS = 1 << 28
+
+
 def dense_init(shape: Sequence[int], dtype, *, generator: torch.Generator,
-               stack: Optional[int] = None) -> torch.Tensor:
-    """A normal cut at +-2 standard deviations, scaled by ``1 /
+               stack: Optional[int] = None,
+               scale: float = 1.0) -> torch.Tensor:
+    """A normal cut at +-2 standard deviations, scaled by ``scale /
     sqrt(shape[0])`` as the reference does. ``stack`` prepends a leading
     axis of that many independent draws (one per super-block), and the
-    scale still follows the per-layer ``shape``."""
-    stddev = 1.0 / max(1.0, math.sqrt(shape[0] if len(shape) > 1 else 1.0))
+    scale still follows the per-layer ``shape``.
+
+    A float32 leaf is drawn whole. A narrower one is drawn in float32
+    slices of at most ``_DRAW_ELEMS`` elements along its flattened leading
+    axes, each cast into the result as it is drawn, so no float32 copy of a
+    whole stacked leaf exists (dbrx-132b's stacked expert matrices would
+    need 34 GB)."""
+    stddev = scale / max(1.0, math.sqrt(shape[0] if len(shape) > 1
+                                        else 1.0))
     full = tuple(shape) if stack is None else (stack, *shape)
-    t = torch.empty(full, dtype=torch.float32, device=generator.device)
-    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return t.mul_(stddev).to(dtype)
+    dev = generator.device
+    if dtype == torch.float32:
+        t = torch.empty(full, dtype=torch.float32, device=dev)
+        torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0,
+                                    generator=generator)
+        return t.mul_(stddev)
+    out = torch.empty(full, dtype=dtype, device=dev)
+    rows = out.view(-1, full[-1])
+    step = max(1, _DRAW_ELEMS // full[-1])
+    for r0 in range(0, rows.shape[0], step):
+        t = torch.empty((min(step, rows.shape[0] - r0), full[-1]),
+                        dtype=torch.float32, device=dev)
+        torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0,
+                                    generator=generator)
+        rows[r0:r0 + t.shape[0]] = t.mul_(stddev)
+    return out
 
 
 def rms_norm_init(d: int, dtype, *, device, stack=None) -> dict:
@@ -45,6 +71,22 @@ def rms_norm(params: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     x = x.float()
     var = torch.mean(x * x, dim=-1, keepdim=True)
     out = x * torch.rsqrt(var + eps) * params["scale"].float()
+    return out.to(dt)
+
+
+def layer_norm_init(d: int, dtype, *, device, stack=None) -> dict:
+    shape = (d,) if stack is None else (stack, d)
+    return {"scale": torch.ones(shape, dtype=dtype, device=device),
+            "bias": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def layer_norm(params: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    out = ((x - mu) * torch.rsqrt(var + eps) * params["scale"].float()
+           + params["bias"].float())
     return out.to(dt)
 
 
@@ -61,6 +103,28 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     freqs = torch.as_tensor(rope_freqs(hd, theta), dtype=torch.float32,
                             device=x.device)                       # [hd/2]
     ang = positions[..., :, None].float() * freqs                  # [..., S, hd/2]
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., : hd // 2], x[..., hd // 2:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections: Sequence[int]) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE: the head_dim/2 frequency slots are split
+    into (t, h, w) sections, each rotated by its own position stream.
+
+    x: [..., S, H, hd]; positions: [..., S, 3] (text-only inputs pass the
+    same value in all three streams, which is 1-D RoPE exactly)."""
+    hd = x.shape[-1]
+    freqs = torch.as_tensor(rope_freqs(hd, theta), dtype=torch.float32,
+                            device=x.device)                       # [hd/2]
+    sec = np.asarray(sections)
+    assert sec.sum() == hd // 2, (sections, hd)
+    stream_id = torch.as_tensor(np.repeat(np.arange(3), sec),
+                                device=x.device)                   # [hd/2]
+    pos = positions.float().index_select(-1, stream_id)            # [..., S, hd/2]
+    ang = pos * freqs
     cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
     x1, x2 = x[..., : hd // 2], x[..., hd // 2:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)

@@ -4,7 +4,9 @@ port.
 The reference keeps its parameters as a pytree of arrays: ``embed``,
 ``final_norm``, optionally ``unembed``, and ``blocks``, one dict per block
 kind of the super-block whose leaves carry a leading ``n_superblocks``
-axis. Handed over as numpy arrays (``jax.tree.map(np.asarray, params)``),
+axis; the encoder-decoder pattern adds ``encoder`` (leaves stacked over
+``n_enc_layers``), ``enc_norm`` and ``cross`` (stacked over
+``n_superblocks``). Handed over as numpy arrays (``jax.tree.map(np.asarray, params)``),
 they become the port's parameters with the same structure, names and
 layouts (``wq`` ``[d, H, hd]``, ``wo`` ``[H, hd, d]``, ...), so both
 packages compute from the same numbers. A reference ``TrainState``
@@ -20,17 +22,20 @@ import torch
 from repro_torch import _device
 
 from .config import ModelConfig
-from .transformer import check_supported
 
 
 def params_from_numpy(tree, cfg: ModelConfig, *, device=None) -> dict:
     """The reference pytree (numpy leaves) -> the port's parameter dict on
-    ``device`` (``None``: the card). Checks the structure and every block
-    leaf's leading super-block axis against ``cfg``."""
-    check_supported(cfg)
+    ``device`` (``None``: the card). Checks the structure and every stacked
+    leaf's leading axis against ``cfg``: ``n_superblocks`` for ``blocks``
+    and ``cross``, ``n_enc_layers`` for ``encoder``."""
     dev = _device.resolve(device)
     want = {"embed", "final_norm", "blocks"} | (
         set() if cfg.tie_embeddings else {"unembed"})
+    stacked = {"blocks": cfg.n_superblocks}
+    if cfg.layer_pattern == "encdec":
+        want |= {"encoder", "enc_norm", "cross"}
+        stacked.update(encoder=cfg.n_enc_layers, cross=cfg.n_superblocks)
     if set(tree) != want:
         raise ValueError(f"parameter tree has keys {sorted(tree)}, "
                          f"expected {sorted(want)}")
@@ -38,17 +43,19 @@ def params_from_numpy(tree, cfg: ModelConfig, *, device=None) -> dict:
         raise ValueError(f"{len(tree['blocks'])} block kinds, expected "
                          f"{len(cfg.block_kinds())}")
 
-    def conv(node, stacked):
+    def conv(node, n, name):
         if isinstance(node, dict):
-            return {k: conv(v, stacked) for k, v in node.items()}
+            return {k: conv(v, n, name) for k, v in node.items()}
         arr = np.asarray(node)
-        if stacked and arr.shape[0] != cfg.n_superblocks:
-            raise ValueError(f"block leaf of shape {arr.shape} lacks the "
-                             f"{cfg.n_superblocks} super-blocks")
+        if n is not None and arr.shape[0] != n:
+            raise ValueError(f"{name} leaf of shape {arr.shape} lacks the "
+                             f"leading axis of {n}")
         return torch.from_numpy(np.array(arr)).to(dev)   # a writable copy
 
-    out = {k: conv(v, False) for k, v in tree.items() if k != "blocks"}
-    out["blocks"] = [conv(b, True) for b in tree["blocks"]]
+    out = {k: conv(v, stacked.get(k), k) for k, v in tree.items()
+           if k != "blocks"}
+    out["blocks"] = [conv(b, cfg.n_superblocks, "blocks")
+                     for b in tree["blocks"]]
     return out
 
 

@@ -1,14 +1,20 @@
-"""The LM for attention-only layer patterns: init, ``forward`` (training
-and teacher-forced), ``lm_loss``, and decode against the Roaring-paged KV
-cache.
+"""Unified LM: every architecture of the registry is a layer pattern over
+sub-blocks.
 
 Layers are stacked per *super-block* as in the reference: ``params
 ["blocks"]`` holds one dict per block kind of the super-block, each leaf
 with a leading ``n_superblocks`` axis, and a Python loop over super-blocks
 takes the place of the reference's ``lax.scan``; ``remat="full"``
 checkpoints each super-block, as the reference checkpoints its scan body.
-Patterns with MoE, SSM, RWKV or an encoder wait for later slices (ROADMAP
-queue 1) and raise ``NotImplementedError``.
+
+Supports dense GQA decoders, gemma2's local / global alternation with
+softcaps, MoE (uniform or alternating), jamba's 7:1 Mamba / attention
+hybrid with MoE, RWKV6, whisper's encoder-decoder (audio frontend stub) and
+qwen2-vl (vision stub, M-RoPE). Decode runs one token against per-layer
+caches (``init_decode_caches`` / ``decode_step``: KV, conv / SSM state,
+RWKV state) for every pattern, and against the Roaring-paged KV pools
+(``init_paged_caches`` / ``decode_step_paged``) for attention-only
+patterns.
 """
 
 from __future__ import annotations
@@ -20,19 +26,11 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import _device
+from repro_torch.distributed import context as dctx
 
 from . import attention as attn_mod
-from . import common, mlp as mlp_mod
+from . import common, mlp as mlp_mod, rwkv as rwkv_mod, ssm as ssm_mod
 from .config import ModelConfig
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    kinds = cfg.block_kinds()
-    if cfg.layer_pattern == "encdec" or not all(
-            k in ("attn_mlp", "attn_local_mlp") for k in kinds):
-        raise NotImplementedError(
-            f"{cfg.name}: layer pattern {cfg.layer_pattern!r} is not ported "
-            "yet (attention + dense MLP only); see ROADMAP.md queue 1")
 
 
 def _layer(tree, i: int):
@@ -42,23 +40,57 @@ def _layer(tree, i: int):
     return tree[i]
 
 
-def _sqrt_d(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """gemma-style sqrt(d) embedding scale, rounded to the compute dtype."""
-    return torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
-                        device=x.device)
+def _embed(params: dict, tokens: torch.Tensor, cfg: ModelConfig):
+    """Token embeddings in the compute dtype, with gemma's sqrt(d) scale
+    (rounded to the compute dtype) where ``logit_softcap`` is set."""
+    x = common.embed(params["embed"], tokens).to(
+        common.dtype_of(cfg.compute_dtype))
+    if cfg.logit_softcap is not None:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
+                             device=x.device)
+    return x
+
+
+def _logits(params: dict, x: torch.Tensor, cfg: ModelConfig):
+    x = common.rms_norm(params["final_norm"], x)
+    table = params["unembed"] if not cfg.tie_embeddings else params["embed"]
+    return common.unembed(table, x, softcap=cfg.logit_softcap,
+                          vocab=cfg.vocab)
 
 
 # =============================================================================
 # init
 # =============================================================================
 
+def _sublayer_init(kind: str, cfg: ModelConfig, dtype, gen, n: int) -> dict:
+    d, dev = cfg.d_model, gen.device
+
+    def norm():
+        return common.rms_norm_init(d, torch.float32, device=dev, stack=n)
+    if kind == "rwkv":
+        return {"ln1": norm(), "ln2": norm(),
+                "tm": rwkv_mod.rwkv_init(cfg, dtype, generator=gen,
+                                         stack=n)}
+    p = {"ln1": norm(), "ln2": norm()}
+    if kind.startswith("attn"):
+        p["attn"] = attn_mod.attn_init(cfg, dtype, generator=gen, stack=n)
+    elif kind.startswith("mamba"):
+        p["mamba"] = ssm_mod.mamba_init(cfg, dtype, generator=gen, stack=n)
+    if kind.endswith("_moe"):
+        p["moe"] = mlp_mod.moe_init(cfg, dtype, generator=gen, stack=n)
+    else:
+        p["mlp"] = mlp_mod.mlp_init(cfg, dtype, generator=gen, stack=n)
+    return p
+
+
 def init_lm(cfg: ModelConfig, seed: int = 0, *, device=None) -> dict:
     """Random parameters from one explicit ``torch.Generator`` seeded with
     ``seed``, drawn on ``device`` (``None``: the card). Truncated normals
     with the reference's scales; the numbers differ from the reference's
     ``jax.random`` draws (tests carry the reference's parameters over with
-    ``models.convert`` instead)."""
-    check_supported(cfg)
+    ``models.convert`` instead). The encoder-decoder pattern adds
+    ``encoder`` (``n_enc_layers`` stacked attention + MLP blocks),
+    ``enc_norm`` and ``cross`` (one cross-attention per super-block)."""
     dev = _device.resolve(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     dtype = common.dtype_of(cfg.param_dtype)
@@ -72,12 +104,18 @@ def init_lm(cfg: ModelConfig, seed: int = 0, *, device=None) -> dict:
     if not cfg.tie_embeddings:
         params["unembed"] = {"table": common.dense_init(
             (cfg.vocab_padded, d), dtype, generator=gen)}
-    params["blocks"] = [{
-        "ln1": common.rms_norm_init(d, torch.float32, device=dev, stack=n_sb),
-        "ln2": common.rms_norm_init(d, torch.float32, device=dev, stack=n_sb),
-        "attn": attn_mod.attn_init(cfg, dtype, generator=gen, stack=n_sb),
-        "mlp": mlp_mod.mlp_init(cfg, dtype, generator=gen, stack=n_sb),
-    } for _ in cfg.block_kinds()]
+    params["blocks"] = [_sublayer_init(kind, cfg, dtype, gen, n_sb)
+                        for kind in cfg.block_kinds()]
+    if cfg.layer_pattern == "encdec":
+        params["encoder"] = _sublayer_init("attn_mlp", cfg, dtype, gen,
+                                           cfg.n_enc_layers)
+        params["enc_norm"] = common.rms_norm_init(d, torch.float32,
+                                                  device=dev)
+        params["cross"] = {
+            "ln": common.rms_norm_init(d, torch.float32, device=dev,
+                                       stack=n_sb),
+            "xattn": attn_mod.attn_init(cfg, dtype, generator=gen,
+                                        stack=n_sb)}
     return params
 
 
@@ -85,57 +123,106 @@ def init_lm(cfg: ModelConfig, seed: int = 0, *, device=None) -> dict:
 # forward (training, teacher-forced, prefill)
 # =============================================================================
 
-def _superblock(params: dict, x: torch.Tensor, i: int, cfg: ModelConfig,
-                positions, block_lists) -> torch.Tensor:
-    for j, kind in enumerate(cfg.block_kinds()):
-        p = _layer(params["blocks"][j], i)
-        h = common.rms_norm(p["ln1"], x)
+def _apply_sublayer(p, x, kind, cfg: ModelConfig, positions, block_lists):
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = common.rms_norm(p["ln1"], x)
+    if kind == "rwkv":
+        x = x + rwkv_mod.rwkv_time_mix(p["tm"], h, cfg)
+        h2 = common.rms_norm(p["ln2"], x)
+        return x + rwkv_mod.rwkv_channel_mix(p["tm"], h2, cfg), aux
+    if kind.startswith("attn"):
         x = x + attn_mod.attention(p["attn"], h, cfg, positions=positions,
                                    layer_kind=kind, block_lists=block_lists)
-        x = x + mlp_mod.mlp(p["mlp"], common.rms_norm(p["ln2"], x))
-    return x
+    elif kind.startswith("mamba"):
+        x = x + ssm_mod.mamba(p["mamba"], h, cfg)
+    h2 = common.rms_norm(p["ln2"], x)
+    if kind.endswith("_moe"):
+        out, aux = mlp_mod.moe(p["moe"], h2, cfg)
+        return x + out, aux
+    return x + mlp_mod.mlp(p["mlp"], h2), aux
+
+
+def _superblock(params: dict, x: torch.Tensor, i: int, cfg: ModelConfig,
+                positions, block_lists, memory):
+    """One super-block: its sub-layers, then (encoder-decoder, with a
+    memory) its cross-attention. Returns (x, the sub-layers' aux sum)."""
+    x = dctx.constrain_batch(x)                 # anchor batch sharding
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for j, kind in enumerate(cfg.block_kinds()):
+        x, a = _apply_sublayer(_layer(params["blocks"][j], i), x, kind, cfg,
+                               positions, block_lists)
+        aux = aux + a
+    if cfg.layer_pattern == "encdec" and memory is not None:
+        cp = _layer(params["cross"], i)
+        h = common.rms_norm(cp["ln"], x)
+        x = x + attn_mod.cross_attention(cp["xattn"], h, memory, cfg)
+    return dctx.constrain_batch(x), aux
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
-            block_lists=None, remat: str = "none"):
+            block_lists=None, extra_embeds: Optional[torch.Tensor] = None,
+            memory: Optional[torch.Tensor] = None, remat: str = "none"):
     """tokens: int[B, S] -> (logits [B, S, V], aux_loss).
 
-    Attention-only patterns, so ``aux_loss`` is always 0. ``block_lists``:
-    optional (kv_idx, counts) tensors on the tokens' device for the Roaring
-    block-sparse path of global layers (``cfg.attn_impl == "sparse"``).
-    ``remat``: "none" or "full" (each super-block is recomputed in the
-    backward, so only super-block inputs are kept); the reference's "dots"
-    policy is not ported yet.
+    ``extra_embeds``: precomputed modality embeddings ([B, S_m, d]; the
+    vision / audio stubs) prepended to the token stream; their logits are
+    sliced off. ``memory``: the encoder output for the encoder-decoder
+    pattern. ``block_lists``: optional (kv_idx, counts) tensors on the
+    tokens' device for the Roaring block-sparse path of global layers
+    (``cfg.attn_impl == "sparse"``). ``aux_loss``: the MoE layers' summed
+    load-balancing loss (0 without MoE). ``remat``: "none" or "full" (each
+    super-block is recomputed in the backward, so only super-block inputs
+    are kept).
     """
-    check_supported(cfg)
     if remat == "dots":
-        raise NotImplementedError('remat="dots" (save only matmul outputs) '
-                                  "is not ported yet; see ROADMAP.md queue 1")
+        raise NotImplementedError(
+            'remat="dots" (save only matmul outputs) is not ported yet; it '
+            "comes with the training slice of these architectures (ROADMAP "
+            "queue 1)")
     if remat not in ("none", "full"):
         raise ValueError(f"remat must be 'none' or 'full' (got {remat!r})")
-    cdt = common.dtype_of(cfg.compute_dtype)
-    x = common.embed(params["embed"], tokens).to(cdt)
-    if cfg.logit_softcap is not None:           # gemma-style sqrt(d) scaling
-        x = x * _sqrt_d(cfg, x)
+    x = _embed(params, tokens, cfg)
+    if extra_embeds is not None:
+        x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_superblocks):
         if remat == "full":
-            x = checkpoint(_superblock, params, x, i, cfg, positions,
-                           block_lists, use_reentrant=False)
+            x, a = checkpoint(_superblock, params, x, i, cfg, positions,
+                              block_lists, memory, use_reentrant=False)
         else:
-            x = _superblock(params, x, i, cfg, positions, block_lists)
-    x = common.rms_norm(params["final_norm"], x)
-    table = params["unembed"] if not cfg.tie_embeddings else params["embed"]
-    logits = common.unembed(table, x, softcap=cfg.logit_softcap,
-                            vocab=cfg.vocab)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+            x, a = _superblock(params, x, i, cfg, positions, block_lists,
+                               memory)
+        aux = aux + a
+    logits = _logits(params, x, cfg)
+    if extra_embeds is not None:
+        logits = logits[:, extra_embeds.shape[1]:, :]
+    return logits, aux
+
+
+def encode(params: dict, frames: torch.Tensor, cfg: ModelConfig):
+    """Whisper-style encoder over precomputed frame embeddings (the stub
+    frontend): [B, S, d] -> [B, S, d] in the compute dtype."""
+    x = frames.to(common.dtype_of(cfg.compute_dtype))
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    for i in range(cfg.n_enc_layers):
+        p = _layer(params["encoder"], i)
+        h = common.rms_norm(p["ln1"], x)
+        x = x + attn_mod.attention(p["attn"], h, cfg, positions=positions,
+                                   causal=False)
+        x = x + mlp_mod.mlp(p["mlp"], common.rms_norm(p["ln2"], x))
+    return common.rms_norm(params["enc_norm"], x)
 
 
 def lm_loss(params: dict, tokens: torch.Tensor, labels: torch.Tensor,
-            cfg: ModelConfig, block_lists=None, aux_weight: float = 0.01):
-    """Mean next-token cross-entropy over every position (f32)."""
-    logits, aux = forward(params, tokens, cfg, block_lists=block_lists)
+            cfg: ModelConfig, block_lists=None, extra_embeds=None,
+            memory=None, aux_weight: float = 0.01):
+    """Mean next-token cross-entropy over every position (f32), plus
+    ``aux_weight`` times the MoE load-balancing loss."""
+    logits, aux = forward(params, tokens, cfg, block_lists=block_lists,
+                          extra_embeds=extra_embeds, memory=memory)
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     ll = logits.gather(-1, labels.long()[..., None])[..., 0]
@@ -143,15 +230,122 @@ def lm_loss(params: dict, tokens: torch.Tensor, labels: torch.Tensor,
 
 
 # =============================================================================
+# decode (single token) against dense per-layer caches
+# =============================================================================
+
+def init_decode_caches(cfg: ModelConfig, batch: int, s_max: int, *,
+                       device=None) -> list:
+    """Per-super-block-position stacked caches, one dict per block kind:
+    ``{"k", "v"}`` [n_sb, B, s_max, KVH, hd] (compute dtype) for attention,
+    ``{"conv"}`` [n_sb, B, ssm_conv - 1, d_inner] (compute dtype) and
+    ``{"h"}`` [n_sb, B, d_inner, ssm_state] (f32) for Mamba, ``{"x_tm",
+    "x_cm"}`` [n_sb, B, d] (compute dtype) and ``{"S"}`` [n_sb, B, H, 64,
+    64] (f32) for RWKV; all zeros on ``device`` (``None``: the card)."""
+    dev = _device.resolve(device)
+    cdt = common.dtype_of(cfg.compute_dtype)
+    n_sb = cfg.n_superblocks
+    d, hd, KVH = cfg.d_model, cfg.hd, cfg.n_kv_heads
+    di, st = cfg.ssm_expand * d, cfg.ssm_state
+    H_rwkv = d // rwkv_mod.HEAD_DIM
+
+    def z(*shape, dtype=cdt):
+        return torch.zeros((n_sb, batch, *shape), dtype=dtype, device=dev)
+    caches = []
+    for kind in cfg.block_kinds():
+        if kind.startswith("attn"):
+            caches.append({"k": z(s_max, KVH, hd), "v": z(s_max, KVH, hd)})
+        elif kind.startswith("mamba"):
+            caches.append({"conv": z(cfg.ssm_conv - 1, di),
+                           "h": z(di, st, dtype=torch.float32)})
+        elif kind == "rwkv":
+            caches.append({"x_tm": z(d),
+                           "S": z(H_rwkv, rwkv_mod.HEAD_DIM,
+                                  rwkv_mod.HEAD_DIM, dtype=torch.float32),
+                           "x_cm": z(d)})
+        else:
+            raise ValueError(kind)
+    return caches
+
+
+def _keep_rows(new: torch.Tensor, old: torch.Tensor, write):
+    """``new`` on the rows ``write`` selects (all when None), ``old``
+    elsewhere; rows are dim 0."""
+    if write is None:
+        return new
+    sel = write.to(new.device).reshape(-1, *([1] * (new.dim() - 1)))
+    return torch.where(sel, new.to(old.dtype), old)
+
+
+def decode_step(params: dict, caches: list, tokens: torch.Tensor,
+                pos: torch.Tensor, cfg: ModelConfig,
+                memory: Optional[torch.Tensor] = None,
+                write: Optional[torch.Tensor] = None):
+    """tokens: int[B, 1]; pos: int[B] -> (logits [B, 1, V], caches).
+
+    The serving step of every pattern, over ``init_decode_caches``'
+    caches, which are updated **in place** (the reference returns new
+    ones) and returned. ``memory``: the encoder output (encoder-decoder).
+    ``write`` (bool[B]; default every row, the reference's behaviour)
+    selects the rows that advance: a row left out stores no K/V, attends
+    to positions ``< pos`` and keeps its Mamba / RWKV state, as a row of
+    ``decode_step_paged`` that does not write.
+    """
+    x = _embed(params, tokens, cfg)
+    for i in range(cfg.n_superblocks):
+        for j, kind in enumerate(cfg.block_kinds()):
+            p, c = _layer(params["blocks"][j], i), caches[j]
+            h = common.rms_norm(p["ln1"], x)
+            if kind.startswith("attn"):
+                out, _, _ = attn_mod.attention_decode(
+                    p["attn"], h, cfg, cache_k=c["k"][i], cache_v=c["v"][i],
+                    pos=pos, layer_kind=kind, write=write)
+                x = x + out
+            elif kind.startswith("mamba"):
+                out, (nc, nh) = ssm_mod.mamba_decode_step(
+                    p["mamba"], h, (c["conv"][i], c["h"][i]), cfg)
+                c["conv"][i] = _keep_rows(nc, c["conv"][i], write)
+                c["h"][i] = _keep_rows(nh, c["h"][i], write)
+                x = x + out
+            elif kind == "rwkv":
+                out, (x_tm, S, _) = rwkv_mod.rwkv_decode_step(
+                    p["tm"], h, (c["x_tm"][i], c["S"][i], c["x_cm"][i]), cfg)
+                x = x + out
+                h2 = common.rms_norm(p["ln2"], x)
+                cm_out, x_cm = rwkv_mod.rwkv_channel_mix_step(
+                    p["tm"], h2, c["x_cm"][i], cfg)
+                x = x + cm_out
+                for k, v in (("x_tm", x_tm), ("S", S), ("x_cm", x_cm)):
+                    c[k][i] = _keep_rows(v, c[k][i], write)
+                continue
+            h2 = common.rms_norm(p["ln2"], x)
+            if kind.endswith("_moe"):
+                x = x + mlp_mod.moe(p["moe"], h2, cfg)[0]
+            else:
+                x = x + mlp_mod.mlp(p["mlp"], h2)
+        if cfg.layer_pattern == "encdec" and memory is not None:
+            cp = _layer(params["cross"], i)
+            h = common.rms_norm(cp["ln"], x)
+            x = x + attn_mod.cross_attention(cp["xattn"], h, memory, cfg)
+    return _logits(params, x, cfg), caches
+
+
+# =============================================================================
 # decode against the Roaring-paged KV cache (serving path)
 # =============================================================================
+
+def _check_paged(cfg: ModelConfig) -> None:
+    if not all(k.startswith("attn") for k in cfg.block_kinds()):
+        raise ValueError(
+            f"{cfg.name}: paged decode supports attention-only patterns; use "
+            f"decode_step for {cfg.layer_pattern!r}")
+
 
 def init_paged_caches(cfg: ModelConfig, n_pages: int, page_size: int, *,
                       device=None) -> list:
     """Per-super-block-position stacked page pools, one ``{"k", "v"}`` per
     block kind, each ``[n_superblocks, n_pages, page_size, KVH, hd]`` in the
-    compute dtype."""
-    check_supported(cfg)
+    compute dtype (attention-only patterns)."""
+    _check_paged(cfg)
     dev = _device.resolve(device)
     cdt = common.dtype_of(cfg.compute_dtype)
     shape = (cfg.n_superblocks, n_pages, page_size, cfg.n_kv_heads, cfg.hd)
@@ -164,7 +358,9 @@ def decode_step_paged(params: dict, pools: list, tokens: torch.Tensor,
                       pos: torch.Tensor, page_idx: torch.Tensor,
                       counts: torch.Tensor, lengths: torch.Tensor,
                       cfg: ModelConfig, write: Optional[torch.Tensor] = None):
-    """Decode one token against Roaring-paged KV pools.
+    """Decode one token against Roaring-paged KV pools (attention-only
+    patterns; MoE on ``attn_moe`` kinds; the encoder-decoder pattern without
+    memory, as in the reference).
 
     tokens: int[B, 1]; pos: int[B]; page_idx: int32[B, max_pages] physical
     page list per sequence (``RoaringPageTable.gather_lists``); counts /
@@ -180,11 +376,8 @@ def decode_step_paged(params: dict, pools: list, tokens: torch.Tensor,
     """
     from repro_torch.kernels.sparse_attn import paged_decode
 
-    check_supported(cfg)
-    cdt = common.dtype_of(cfg.compute_dtype)
-    x = common.embed(params["embed"], tokens).to(cdt)
-    if cfg.logit_softcap is not None:
-        x = x * _sqrt_d(cfg, x)
+    _check_paged(cfg)
+    x = _embed(params, tokens, cfg)
     B = tokens.shape[0]
     H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     G = H // KVH
@@ -201,9 +394,8 @@ def decode_step_paged(params: dict, pools: list, tokens: torch.Tensor,
     kv_len = (lengths + 1).to(torch.int32)
     starts_local = torch.clamp(pos + 1 - cfg.window, min=0).to(torch.int32)
     starts_global = torch.zeros_like(starts_local)
-    kinds = cfg.block_kinds()
     for i in range(cfg.n_superblocks):
-        for j, kind in enumerate(kinds):
+        for j, kind in enumerate(cfg.block_kinds()):
             p = _layer(params["blocks"][j], i)
             pk, pv = pools[j]["k"][i], pools[j]["v"][i]
             h = common.rms_norm(p["ln1"], x)
@@ -217,9 +409,9 @@ def decode_step_paged(params: dict, pools: list, tokens: torch.Tensor,
             out = out.reshape(B, 1, H, hd)
             x = x + torch.einsum("bshk,hkd->bsd", out.to(x.dtype),
                                  p["attn"]["wo"].to(x.dtype))
-            x = x + mlp_mod.mlp(p["mlp"], common.rms_norm(p["ln2"], x))
-    x = common.rms_norm(params["final_norm"], x)
-    table = params["unembed"] if not cfg.tie_embeddings else params["embed"]
-    logits = common.unembed(table, x, softcap=cfg.logit_softcap,
-                            vocab=cfg.vocab)
-    return logits, pools
+            h2 = common.rms_norm(p["ln2"], x)
+            if kind.endswith("_moe"):
+                x = x + mlp_mod.moe(p["moe"], h2, cfg)[0]
+            else:
+                x = x + mlp_mod.mlp(p["mlp"], h2)
+    return _logits(params, x, cfg), pools

@@ -2,6 +2,6 @@
 Roaring-paged KV cache."""
 
 from .engine import Request, ServeEngine
-from .kv_cache import RoaringPageTable
+from .kv_cache import PagedKVCache, RoaringPageTable
 
-__all__ = ["RoaringPageTable", "ServeEngine", "Request"]
+__all__ = ["RoaringPageTable", "PagedKVCache", "ServeEngine", "Request"]

@@ -52,8 +52,11 @@ class ServeEngine:
     def __init__(self, cfg: ModelConfig, params, *, max_batch: int = 4,
                  n_pages: int = 256, page_size: int = 16,
                  max_pages_per_seq: int = 32, device=None):
-        assert all(k.startswith("attn") for k in cfg.block_kinds()), (
-            "paged engine supports attention-pattern archs")
+        if not all(k.startswith("attn") for k in cfg.block_kinds()):
+            raise ValueError(
+                f"{cfg.name}: the paged engine serves attention-pattern "
+                "archs; Mamba / RWKV patterns decode over state caches with "
+                "models.transformer.decode_step")
         self.cfg = cfg
         self.params = params
         self.device = _device.resolve(device)

@@ -14,13 +14,20 @@ bookkeeping is the paper's machinery:
     ``shared_pages*``) put the page sets on the table's device as
     ``repro_torch.roaring`` slabs, and ``audit`` checks the allocator with
     ``repro_torch.roaring.validate``.
+
+``PagedKVCache`` holds one pair of pools for all layers, ``[L, P, page,
+KVH, hd]``, and scatters one token's K/V of every layer into them.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List
 
 import numpy as np
+import torch
+
+from repro_torch import _device
 
 from repro_torch.core.py_roaring import RoaringBitmap, union_many
 
@@ -173,3 +180,38 @@ class RoaringPageTable:
             counts[i] = len(pages)
             lengths[i] = self.seq_len.get(s, 0)
         return page_idx, counts, lengths
+
+
+@dataclasses.dataclass
+class PagedKVCache:
+    """Device-side page pools for all layers: [L, P, page, KVH, hd] x (k,
+    v)."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    page_size: int
+
+    @classmethod
+    def create(cls, n_layers: int, n_pages: int, page_size: int, kvh: int,
+               hd: int, dtype=torch.bfloat16, *,
+               device=None) -> "PagedKVCache":
+        """Zeroed pools on ``device`` (``None``: the card)."""
+        dev = _device.resolve(device)
+        shape = (n_layers, n_pages, page_size, kvh, hd)
+        return cls(torch.zeros(shape, dtype=dtype, device=dev),
+                   torch.zeros(shape, dtype=dtype, device=dev), page_size)
+
+    def write_token(self, layer_slices_k, layer_slices_v, page_ids,
+                    offsets) -> "PagedKVCache":
+        """Scatter one token's K/V ([L, B, KVH, hd]) of each of B sequences
+        into (page_ids[b], offsets[b]) of every layer, **in place** on the
+        pools' device (the reference returns a new cache), and return this
+        cache."""
+        dev = self.k.device
+        pid = torch.as_tensor(page_ids).to(dev, torch.long)
+        off = torch.as_tensor(offsets).to(dev, torch.long)
+        self.k[:, pid, off] = torch.as_tensor(layer_slices_k).to(
+            dev, self.k.dtype)
+        self.v[:, pid, off] = torch.as_tensor(layer_slices_v).to(
+            dev, self.v.dtype)
+        return self

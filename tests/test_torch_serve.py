@@ -17,7 +17,11 @@ reduced gemma2-2b (G = 2, softcap, window 64) and reduced stablelm-1.6b
   with its ``serve.step`` span and ``serve.*`` gauges;
 * the port's engine at ``max_batch`` 2 and 4 against greedy over the
   reference's teacher-forced ``forward``, and the port's ``forward``
-  against the reference's.
+  against the reference's;
+* the other architectures of the registry (``_torch_archs.
+  check_decode_and_engine``): ``decode_step`` on every reduced config,
+  ``decode_step_paged`` on the attention-only ones, the engine on reduced
+  dbrx-132b and llama4, ``PagedKVCache``.
 
 Inputs come from a seed with numpy; the reference's parameters reach the
 port through ``models.convert``. Tolerances: float32 results computed in
@@ -32,6 +36,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_archs import check_decode_and_engine
 from _torch_parity import release_jax_executables  # noqa: F401
 from repro.configs import get_config as ref_config
 from repro.kernels.sparse_attn import kernel as RK
@@ -93,6 +98,7 @@ def test_serving_path_matches_reference():
         prompts = _prompts(rng, rcfg)
         _check_engine_batch1(rcfg, pcfg, rparams, pparams, prompts[:2])
         _check_engine_vs_forward(rcfg, pcfg, rparams, pparams, prompts)
+    check_decode_and_engine()
 
 
 # ---------------------------------------------------------------- kernel level

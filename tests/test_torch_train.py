@@ -28,6 +28,9 @@ the CPU, with inputs made from a seed with numpy:
 * ``launch.train.main`` under ``ResilientTrainer`` with one simulated
   failure ends on the parameters of an uninterrupted run, exactly, and its
   checkpoints read back through the reference's ``restore_checkpoint``;
+* inside the masks-and-data item: ``forward`` / ``lm_loss`` / ``encode``
+  and MoE routing of every reduced config of the registry
+  (``_torch_archs.check_forward_and_encode``);
 * inside the train-steps item: Roaring top-k gradient compression, the
   compressed train step and the sharding rules
   (``_torch_distributed.check_grad_comp``), and ``models/flops.py``
@@ -51,6 +54,7 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from _torch_archs import check_forward_and_encode
 from _torch_baselines import check_flops
 from _torch_distributed import check_grad_comp, check_two_rank_training
 from _torch_parity import release_jax_executables  # noqa: F401
@@ -119,6 +123,7 @@ def test_attention_masks_and_data_match_reference():
         _check_flash(rng, rcfg, pcfg, window)
     _check_masks()
     _check_data()
+    check_forward_and_encode()
 
 
 def _check_sparse_attention(rng, G, D, softcap, causal):
