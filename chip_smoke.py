@@ -52,7 +52,16 @@ paths of the port end to end:
   every leaf of step 0 checked against the top-k definition and the
   embedding leaf's support overlaps against ``np.intersect1d``; then the
   analytic FLOP rates (``models/flops.py``) of the training and serving
-  runs.
+  runs;
+* training the rest of the registry: qwen2-vl-72b at full width (4 of its
+  80 layers, bf16 as published) on 64 stub patches and 1,984 tokens, every
+  layer through the block-sparse kernel (D = 128, G = 8), with
+  ``pick_optimizer``'s Adafactor: step 0 held to the plain version, the
+  loss falling, the Adafactor state's shapes held to the reference's
+  rule, then one step under remat "dots" held to "full"; and every
+  reduced config trained two steps on the card against the CPU
+  (``pick_optimizer``'s optimizer, 8-bit AdamW and remat "dots" on one
+  config each, qwen2-vl's patches, whisper with and without memory).
 
 It then times each kernel on the inputs its path gave it (device time
 alone: a spin on the card ahead of each start event outlasts the host's
@@ -142,15 +151,13 @@ ROUTER_DRIFT = 2e-2
 ROUTER_TIE = 5e-3
 # rwkv6-1.6b and whisper-base at full width and depth: 4 prompts streamed
 # through decode_step, STREAM_NEW greedy tokens each; whisper's encoder over
-# launch/specs.py's 256 stub frames
+# launch/specs.py's ENC_FRAMES (256) stub frames
 STREAM_NEW = 16
-WHISPER_FRAMES = 256
 # the other reduced configs on the card against the CPU, f32 compute: sums
 # in another order on another device, through at most 8 layers
 REGISTRY_ARCHS = ("jamba-1.5-large-398b", "qwen2-vl-72b",
                   "llama4-maverick-400b-a17b", "starcoder2-15b",
                   "stablelm-3b")
-QWEN_PATCHES = 64             # launch/specs.py's vision stub patches
 REG_ATOL, REG_RTOL = 1e-4, 1e-3
 
 # the training phase: gemma2-2b at full width and depth, Roaring block-sparse
@@ -175,6 +182,29 @@ GNORM_RTOL = 2e-2
 COMP_RATIO = 0.01
 COMP_STEPS = 3
 BF16_TFLOPS = 989.0           # H100 SXM dense bf16 peak (NVIDIA data sheet)
+# training the rest of the registry: qwen2-vl-72b (configs/qwen2_vl_72b.py,
+# arXiv:2409.12191) at full width and bf16 as published, CUT to 4 of its 80
+# layers, every layer through the block-sparse kernel (D = 128, G = 8);
+# batch 1 x 2,048 positions (launch/specs.py's 64 stub patches, then 1,984
+# tokens); 81 of 256 blocks live. pick_optimizer's Adafactor at a constant
+# learning rate: its own schedule warms up over 2,000 steps, which leaves
+# bf16 parameters unchanged over a few steps
+QWEN_ARCH = "qwen2-vl-72b"
+QWEN_LAYERS = 6
+QWEN_SEQ = 2048
+QWEN_STEPS = 4
+QWEN_MASK = dict(pattern="local_global", window_blocks=4, n_global=2)
+QWEN_LIVE_BLOCKS = 81
+QWEN_LR = 1e-4
+QWEN_AB = 3                 # warmed steps of remat "full" and "dots" in turn
+# then every reduced config trains on the card against the CPU (f32), with
+# pick_optimizer's optimizer at a constant rate; 8-bit AdamW on one config,
+# remat "dots" on another
+REG_TRAIN_STEPS = 2
+REG_SEQ = 256
+REG_LR = 1e-3
+REG_ADAMW8BIT = "stablelm-1.6b"
+REG_DOTS = "dbrx-132b"
 # the launcher phase: reduced gemma2-2b, one simulated failure
 LAUNCH_ARGS = ["--arch", "gemma2-2b", "--reduced", "--steps", "6",
                "--batch", "2", "--seq", "256", "--ckpt-every", "2",
@@ -2327,9 +2357,10 @@ def decode_profile(torch, T, cfg, params, memory, n=8):
 def state_paths(torch, T, seed, device="cuda", cfgs=None):
     """rwkv6-1.6b and whisper-base at full width and depth: 4 prompts each
     streamed through ``decode_step`` (whisper with ``encode``'s memory over
-    ``WHISPER_FRAMES`` stub frames), held to ``forward``. ``device`` /
+    ``specs.ENC_FRAMES`` stub frames), held to ``forward``. ``device`` /
     ``cfgs`` rehearse it on the CPU at reduced configs."""
     from repro_torch.configs import get_config
+    from repro_torch.launch.specs import ENC_FRAMES
     cuda = device == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     out = {}
@@ -2343,13 +2374,13 @@ def state_paths(torch, T, seed, device="cuda", cfgs=None):
         memory = None
         if cfg.layer_pattern == "encdec":
             gen = torch.Generator(device=device).manual_seed(seed)
-            frames = torch.randn((len(prompts), WHISPER_FRAMES, cfg.d_model),
+            frames = torch.randn((len(prompts), ENC_FRAMES, cfg.d_model),
                                  generator=gen, device=device)
             sync()
             t = time.perf_counter()
             memory = T.encode(params, frames, cfg)
             sync()
-            log(f"{arch} encode: {WHISPER_FRAMES} stub frames x "
+            log(f"{arch} encode: {ENC_FRAMES} stub frames x "
                 f"{len(prompts)} in {1e3 * (time.perf_counter() - t):.1f} "
                 f"ms, memory {tuple(memory.shape)} {memory.dtype}")
         n_params = sum(t.numel() for t in _leaves(params))
@@ -2369,13 +2400,14 @@ def state_paths(torch, T, seed, device="cuda", cfgs=None):
 
 
 def registry_path(torch, T, SK, tree_map, seed):
-    """The reduced configs of jamba, qwen2-vl (``QWEN_PATCHES`` stub patch
-    embeddings), llama4, starcoder2 and stablelm-3b in f32 compute on the
+    """The reduced configs of jamba, qwen2-vl (``specs.VIS_TOKENS`` stub
+    patch embeddings), llama4, starcoder2 and stablelm-3b in f32 compute on the
     card against the same calls on the CPU from the same parameters:
     ``forward``, ``lm_loss``, two ``decode_step`` calls and, on
     attention-only patterns, one ``decode_step_paged`` through the paged
     decode kernel (one launch a layer), within ``REG_ATOL`` / ``REG_RTOL``."""
     from repro_torch.configs import get_config
+    from repro_torch.launch.specs import VIS_TOKENS
 
     def close(what, got, want):
         g, w = got.float().cpu().numpy(), want.float().numpy()
@@ -2397,7 +2429,7 @@ def registry_path(torch, T, SK, tree_map, seed):
         extra = None
         if cfg.frontend == "vision":
             extra = torch.from_numpy(rng.standard_normal(
-                (2, QWEN_PATCHES, cfg.d_model)).astype(np.float32))
+                (2, VIS_TOKENS, cfg.d_model)).astype(np.float32))
         res = {}
         for dev, p in (("cpu", cpu), ("cuda", card)):
             ex = None if extra is None else extra.to(dev)
@@ -2424,7 +2456,7 @@ def registry_path(torch, T, SK, tree_map, seed):
     launches = SK.launch_counts["paged_decode"]
     log(f"registry (reduced, f32 compute, card vs CPU): "
         f"{', '.join(REGISTRY_ARCHS)}: forward (qwen2-vl with "
-        f"{QWEN_PATCHES} stub patches), lm_loss, two decode_step calls and "
+        f"{VIS_TOKENS} stub patches), lm_loss, two decode_step calls and "
         f"one decode_step_paged on the attention-only ones agree to "
         f"{worst:.3g} (tolerance {REG_ATOL} + {REG_RTOL} x |value|); "
         f"paged_decode launches {launches} (one a layer: {want_launches})")
@@ -2465,13 +2497,16 @@ def _paged_step(torch, T, cfg, params, dev, seed, page=4):
 def check_sparse_flash(torch, cases, SK, SR, seed):
     """The block-sparse flash kernel against its plain version over
     ``cases.FLASH_GRID`` (G 1 / 2, D 64 / 128 / 256, softcap on and off,
-    causal and not), in bf16 and f32, at the model's block of 128: a row
+    causal and not) and ``cases.FLASH_REGISTRY_GRID`` (the registry's
+    training pairs: G 5 / 6 / 8 / 12 at D = 128, G 1 at D = 80), in bf16
+    and f32, at the model's block of 128: a row
     that lists only a block in its future (zeros when causal), a row with
     ``counts = 0``, padding ids after ``counts``, and NaN in the one block
     no row lists."""
     rng = np.random.default_rng(seed)
     worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
-    for G, D, softcap, causal in cases.FLASH_GRID:
+    grid = cases.FLASH_GRID + cases.FLASH_REGISTRY_GRID
+    for G, D, softcap, causal in grid:
         c = cases.sparse_flash_case(rng, G, D)
         t = {k: torch.from_numpy(v).cuda() for k, v in c.items()}
         for dtype in worst:
@@ -2492,7 +2527,8 @@ def check_sparse_flash(torch, cases, SK, SR, seed):
                     "non-zero row without live scores")
             err = (got.float() - want.float()).abs().max().item()
             worst[dtype] = max(worst[dtype], err)
-    log(f"check sparse_flash_attention: {len(cases.FLASH_GRID)} cases x "
+    log(f"check sparse_flash_attention: {len(grid)} cases (the registry's "
+        f"(G, D) {[c[:2] for c in cases.FLASH_REGISTRY_GRID]} among them) x "
         f"(bf16, f32); max abs err {worst[torch.bfloat16]:.3g} (bf16, "
         f"tolerance {BF16_ATOL}), {worst[torch.float32]:.3g} (f32, "
         f"tolerance {F32_ATOL}); rows without live scores zero, the NaN "
@@ -2555,8 +2591,7 @@ def train_path(torch, T, SK, SR, TR, cfg, seed, device="cuda"):
 
     # step 0 with the global layers through the plain version on the card;
     # no optimizer state (step 0's learning rate is 0 under the warm-up)
-    probe = TR.make_train_step(cfg, OptimizerDef(lambda p: None,
-                                                 lambda g, s, p, t: s),
+    probe = TR.make_train_step(cfg, _noop_optimizer(OptimizerDef),
                                remat="full", block_lists=lists)
     orig = A.sparse_attention
     A.sparse_attention = _plain_sparse_attention(SR)
@@ -2640,8 +2675,25 @@ def train_profile(torch, step, state, batch, device="cuda", n=2,
         sync()
         wall_ms = (time.perf_counter() - t) * 1e3
     log(f"profile {label}: {n} steps, wall {wall_ms:.1f} ms ("
-        f"{wall_ms / n:.1f} ms per step); {device_summary(p, wall_ms, 8)} "
-        f"({card_line() if cuda else device})")
+        f"{wall_ms / n:.1f} ms per step); {device_summary(p, wall_ms, 8)}; "
+        f"{gemm_summary(p)} ({card_line() if cuda else device})")
+
+
+# substrings of the names of cuBLAS's and CUTLASS's matrix-product kernels
+GEMM_NAMES = ("gemm", "xmma", "nvjet", "cutlass")
+
+
+def gemm_summary(prof) -> str:
+    """Launches and device time of the matrix-product kernels of a profiled
+    window (kernels whose name holds one of ``GEMM_NAMES``)."""
+    from torch.autograd import DeviceType
+    n, ms = 0, 0.0
+    for e in prof.key_averages():
+        if (e.device_type == DeviceType.CUDA
+                and any(g in e.key.lower() for g in GEMM_NAMES)):
+            n += e.count
+            ms += e.self_device_time_total / 1e3
+    return f"matrix-product kernels: {n} launches, {ms:.2f} ms"
 
 
 def sparse_flash_bound(q, k, kv_idx, counts, block, causal=True):
@@ -2671,7 +2723,7 @@ def sparse_flash_bound(q, k, kv_idx, counts, block, causal=True):
 
 
 def sparse_flash_row(torch, T, SK, SR, cfg, params, lists, batch, launches,
-                     regs):
+                     regs, path="the train path"):
     """The kernel on the inputs the full-width path gave its first global
     layer (captured in an untimed forward), L2 overwritten before each
     launch, beside its plain version and ``scaled_dot_product_attention``
@@ -2691,7 +2743,8 @@ def sparse_flash_row(torch, T, SK, SR, cfg, params, lists, batch, launches,
         with torch.no_grad():
             T.forward(params, batch["tokens"][:, :-1], cfg,
                       block_lists=tuple(torch.from_numpy(a).cuda()
-                                        for a in lists))
+                                        for a in lists),
+                      extra_embeds=batch.get("extra_embeds"))
     finally:
         SK.sparse_flash_attention_cuda = orig
     (q, k, v, kv_idx, counts), kw = captured[0]
@@ -2707,7 +2760,7 @@ def sparse_flash_row(torch, T, SK, SR, cfg, params, lists, batch, launches,
         raise AssertionError(f"sparse_flash_attention disagrees with its "
                              f"plain version by more than one bf16 rounding "
                              f"(max abs err {err:.4g})")
-    log(f"sparse_flash_attention at the train path's input: max abs err "
+    log(f"sparse_flash_attention at {path}'s input: max abs err "
         f"{err:.4g}, within one bf16 rounding of the output everywhere "
         f"(|out| up to {want.float().abs().max().item():.3g})")
     del got, want, diff, ulp
@@ -2733,7 +2786,7 @@ def sparse_flash_row(torch, T, SK, SR, cfg, params, lists, batch, launches,
         f"a block): "
         f"{kernel_regs(regs, f'sparse_flash_mma_kernelILi{D}ELi{heads}E')}")
     return _row("sparse_flash_attention", launches, err, ms, pms, bound,
-                f"the train path's global layer: B = {B}, H = {H}, KVH = "
+                f"{path}'s first global layer: B = {B}, H = {H}, KVH = "
                 f"{k.shape[1]}, S = {S}, D = {D}, {q.dtype}, softcap "
                 f"{kw['softcap']}, {int(counts.sum())} listed blocks, "
                 f"{pairs} live pairs; cold L2",
@@ -2767,6 +2820,333 @@ def launcher_path(torch, LT, simulate_failure):
     if not same:
         raise AssertionError("the restored run ended on other parameters")
 
+
+
+# =============================================================================
+# training the rest of the registry: qwen2-vl-72b at full width, then every
+# reduced config on the card against the CPU
+# =============================================================================
+
+def check_adafactor_state(params, state):
+    """Every leaf's Adafactor state has the reference's shapes: row and
+    column statistics (``vr`` [..., n], ``vc`` [..., m]) where the trailing
+    [n, m] tile has both dims at least 8 and at least 4,096 values, a full
+    ``v`` elsewhere. Returns (factored leaves, all leaves, state floats)."""
+    from repro_torch._tree import leaf_nodes
+    n_fact, n_all, floats = 0, 0, 0
+    for p, s in zip(_leaves(params), leaf_nodes(params, state)):
+        shp = tuple(p.shape)
+        fact = (len(shp) >= 2 and shp[-1] >= 8 and shp[-2] >= 8
+                and shp[-1] * shp[-2] >= 4096)
+        want = ({"vr": shp[:-1], "vc": shp[:-2] + shp[-1:]} if fact
+                else {"v": shp})
+        got = {k: tuple(v.shape) for k, v in s.items()}
+        if got != want:
+            raise AssertionError(f"Adafactor state of a {shp} leaf is {got}, "
+                                 f"expected {want}")
+        n_fact += fact
+        n_all += 1
+        floats += sum(v.numel() for v in s.values())
+    return n_fact, n_all, floats
+
+
+def _noop_optimizer(OptimizerDef):
+    return OptimizerDef(lambda p: None, lambda g, s, p, t: s)
+
+
+def qwen_train_path(torch, T, SK, SR, TR, seed, regs=None, device="cuda",
+                    cfg=None, seq=QWEN_SEQ, live_blocks=QWEN_LIVE_BLOCKS):
+    """qwen2-vl-72b at full width, cut to ``QWEN_LAYERS`` layers, bf16 as
+    published, every layer through the block-sparse kernel: ``QWEN_STEPS``
+    steps of ``pick_optimizer``'s optimizer (Adafactor) at a constant
+    ``QWEN_LR``, remat "full", on one batch of ``VIS_TOKENS`` stub patches
+    and ``seq - VIS_TOKENS`` tokens from the data pipeline. Checks step 0
+    against the plain version, a falling loss, 2 launches a layer a step
+    and the Adafactor state's shapes; then one step under remat "dots" on
+    the same state, held to a "full" pass over it, ``QWEN_AB`` warmed steps
+    of "full" and "dots" in turn, timed, and a profile of "dots"; on the
+    card, the
+    kernel's row at this path's first layer (``sparse_flash_row``).
+    ``device`` / ``cfg`` / ``seq`` / ``live_blocks`` rehearse it on the CPU
+    at a reduced config. Returns (launches, the kernel's row or None)."""
+    from repro_torch import optim
+    from repro_torch.configs import get_config
+    from repro_torch.launch import specs
+    from repro_torch.launch import train as LT
+    from repro_torch.models import attention as A
+    from repro_torch.models import flops as FL
+    from repro_torch.sparsity import build_arch_mask, compile_mask
+
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    card = card_line() if cuda else device
+    full = get_config(QWEN_ARCH)
+    cfg = cfg or dataclasses.replace(full, n_layers=QWEN_LAYERS,
+                                     attn_impl="sparse")
+    t0 = time.perf_counter()
+    params = T.init_lm(cfg, seed, device=device)
+    n_params = sum(t.numel() for t in _leaves(params))
+    n_tok = seq - specs.VIS_TOKENS
+    pipe = LT.build_data(cfg, 1, n_tok, TRAIN_QUERY, seed)
+    toks, mask, _ = pipe.next_batch()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    extra = torch.randn((1, specs.VIS_TOKENS, cfg.d_model), generator=gen,
+                        device=device).to(torch.bfloat16)
+    batch = {"tokens": torch.from_numpy(toks).to(device),
+             "mask": torch.from_numpy(mask).to(device),
+             "extra_embeds": extra}
+    n_blocks = seq // cfg.sparse_block
+    lists = compile_mask(build_arch_mask(n_blocks, **QWEN_MASK))
+    live = int(lists[1].sum())
+    sync()
+    log(f"qwen train model: {cfg.name}, CUT to {cfg.n_layers} of "
+        f"{full.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} / "
+        f"{cfg.n_kv_heads} heads of {cfg.hd}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}, M-RoPE {cfg.mrope_sections}, attn_impl "
+        f"{cfg.attn_impl}; {n_params / 1e9:.3f} B parameters "
+        f"({cfg.param_dtype}, compute {cfg.compute_dtype}); batch 1 x {seq} "
+        f"positions (CUT from train_4k's 256 x 4,096): {specs.VIS_TOKENS} "
+        f"stub patches ({extra.dtype}) then {n_tok} tokens from query "
+        f"{TRAIN_QUERY!r} ({int(mask.sum())} loss positions); block lists "
+        f"{QWEN_MASK}: {live} of {n_blocks ** 2} blocks live, max_active "
+        f"{lists[0].shape[1]}; init {time.perf_counter() - t0:.1f} s")
+    if live != live_blocks:
+        raise AssertionError(f"{live} live blocks, expected {live_blocks}")
+
+    # step 0 with every layer through the plain version on the card
+    probe = TR.make_train_step(cfg, _noop_optimizer(optim.OptimizerDef),
+                               remat="full", block_lists=lists)
+    orig = A.sparse_attention
+    A.sparse_attention = _plain_sparse_attention(SR)
+    try:
+        t = time.perf_counter()
+        _, m = probe(TR.TrainState(params, None, 0), batch)
+        plain = (float(m["loss"]), float(m["grad_norm"]))
+        t_plain = time.perf_counter() - t
+    finally:
+        A.sparse_attention = orig
+    gc.collect()
+
+    name = specs.pick_optimizer(full).name
+    opt = getattr(optim, name)(QWEN_LR)
+    state = TR.TrainState(params, opt.init(params), 0)
+    n_fact, n_all, floats = check_adafactor_state(params, state["opt"]) \
+        if name == "adafactor" else (0, 0, 0)
+    step = TR.make_train_step(cfg, opt, remat="full", block_lists=lists)
+    sync()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    SK.reset_launch_counts()
+    metrics, times, per_step = [], [], []
+    for _ in range(QWEN_STEPS):
+        before = SK.launch_counts["sparse_flash_attention"]
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        sync()
+        times.append(time.perf_counter() - t)
+        per_step.append(SK.launch_counts["sparse_flash_attention"] - before)
+    launches = dict(SK.launch_counts)
+    peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else float("nan")
+    if name == "adafactor":
+        check_adafactor_state(params, state["opt"])
+    ms = 1e3 * float(np.mean(times[1:]))
+    flops = FL.cell_flops(cfg, kind="train", seq_len=seq,
+                          global_batch=1).total
+    log("qwen train steps (loss, grad norm): " + "; ".join(
+        f"{a:.5f}, {b:.4f}" for a, b in metrics))
+    log(f"qwen train: pick_optimizer({full.name}) = {name} (constant lr "
+        f"{QWEN_LR}; its state: {n_fact} of {n_all} leaves factored, "
+        f"{floats / 1e6:.2f} M floats for {n_params / 1e9:.3f} B parameters)"
+        f", remat full; {QWEN_STEPS} steps, step 0 {1e3 * times[0]:.1f} ms, "
+        f"steps 1-{QWEN_STEPS - 1} {ms:.1f} ms per step = "
+        f"{seq / ms * 1e3:.1f} positions/s; max_memory_allocated "
+        f"{peak:.2f} GB; analytic {flops:.4e} FLOPs a step "
+        f"(models/flops.py) = {flops / ms / 1e9:.2f} TFLOP/s "
+        f"({flops / ms / 1e9 / BF16_TFLOPS:.2%} of {BF16_TFLOPS:.0f}); the "
+        f"plain version's step 0 (no optimizer) {1e3 * t_plain:.1f} ms "
+        f"({card})")
+    loss0, gn0 = metrics[0]
+    log(f"qwen step 0 through the kernel vs the plain version: loss "
+        f"{loss0:.6f} vs {plain[0]:.6f} (rel "
+        f"{abs(loss0 - plain[0]) / abs(plain[0]):.3g}, tolerance "
+        f"{LOSS_RTOL}), grad norm {gn0:.5f} vs {plain[1]:.5f} (rel "
+        f"{abs(gn0 - plain[1]) / abs(plain[1]):.3g}, tolerance {GNORM_RTOL})")
+    if not np.all(np.isfinite(metrics)):
+        raise AssertionError("a qwen loss or grad norm is not finite")
+    if (abs(loss0 - plain[0]) > LOSS_RTOL * abs(plain[0])
+            or abs(gn0 - plain[1]) > GNORM_RTOL * abs(plain[1])):
+        raise AssertionError("qwen step 0 through the kernel disagrees with "
+                             "the plain version")
+    if not metrics[-1][0] < metrics[0][0]:
+        raise AssertionError("the qwen loss did not fall")
+    want = 2 * cfg.n_superblocks
+    log(f"launches on the qwen train path: {launches}; per step {per_step} "
+        f"({cfg.n_superblocks} global layers x 2: the forward and its "
+        "recompute under remat)")
+    if per_step != [want] * QWEN_STEPS:
+        raise AssertionError("sparse_flash_attention was not launched twice "
+                             "per layer per qwen step")
+    train_profile(torch, step, state, batch, device, label="qwen train")
+
+    # remat "dots" on the same state: a "full" pass without an update, then
+    # one "dots" step (with the update)
+    t = time.perf_counter()
+    _, m = probe(TR.TrainState(params, None, 0), batch)
+    ref = (float(m["loss"]), float(m["grad_norm"]))
+    t_full = time.perf_counter() - t
+    gc.collect()
+    dots = TR.make_train_step(cfg, opt, remat="dots", block_lists=lists)
+    sync()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    before = SK.launch_counts["sparse_flash_attention"]
+    t = time.perf_counter()
+    state, m = dots(state, batch)
+    got = (float(m["loss"]), float(m["grad_norm"]))
+    sync()
+    t_dots = time.perf_counter() - t
+    dots_launches = SK.launch_counts["sparse_flash_attention"] - before
+    dots_peak = (torch.cuda.max_memory_allocated() / 1e9 if cuda
+                 else float("nan"))
+    log(f"qwen remat dots: loss {got[0]:.6f} vs full {ref[0]:.6f} (rel "
+        f"{abs(got[0] - ref[0]) / abs(ref[0]):.3g}), grad norm {got[1]:.5f} "
+        f"vs {ref[1]:.5f} (rel {abs(got[1] - ref[1]) / abs(ref[1]):.3g}); "
+        f"dots step {1e3 * t_dots:.1f} ms, max_memory_allocated "
+        f"{dots_peak:.2f} GB; the full pass (no optimizer) "
+        f"{1e3 * t_full:.1f} ms; launches {dots_launches} ({card})")
+    if (abs(got[0] - ref[0]) > LOSS_RTOL * abs(ref[0])
+            or abs(got[1] - ref[1]) > GNORM_RTOL * abs(ref[1])):
+        raise AssertionError("remat dots disagrees with remat full")
+    if dots_launches != want:
+        raise AssertionError("remat dots did not launch the kernel twice a "
+                             "layer")
+    ab = {"full": [], "dots": []}
+    for _ in range(QWEN_AB):
+        for remat, fn in (("full", step), ("dots", dots)):
+            t = time.perf_counter()
+            state, m = fn(state, batch)
+            float(m["loss"])
+            sync()
+            ab[remat].append(1e3 * (time.perf_counter() - t))
+    log(f"qwen remat full vs dots, {QWEN_AB} warmed steps each in turn: "
+        + "; ".join(f"{k} " + ", ".join(f"{x:.1f}" for x in v) + " ms"
+                    for k, v in ab.items())
+        + f" (means {np.mean(ab['full']):.1f} / {np.mean(ab['dots']):.1f} "
+        f"ms; {card})")
+    train_profile(torch, dots, state, batch, device,
+                  label="qwen train remat dots")
+    del step, dots, probe
+    gc.collect()
+    row = (sparse_flash_row(torch, T, SK, SR, cfg, params, lists, batch,
+                            launches, regs, path="the qwen train path")
+           if cuda else None)
+    del state, params, batch
+    gc.collect()
+    return launches, row
+
+
+def _reduced_train_cfg(arch, FLASH_HEAD_DIMS):
+    """A reduced config in f32 compute, block-sparse wherever it has
+    attention at a head dim the kernel is built for."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(arch, reduced=True),
+                              compute_dtype="float32")
+    if (any(k.startswith("attn") for k in cfg.block_kinds())
+            and cfg.hd in FLASH_HEAD_DIMS):
+        cfg = dataclasses.replace(cfg, attn_impl="sparse")
+    return cfg
+
+
+def registry_train_path(torch, T, SK, TR, tree_map, seed, device="cuda",
+                        archs=None):
+    """Every reduced config of the registry: ``REG_TRAIN_STEPS`` train
+    steps on the card and on the CPU from the same state (f32 compute),
+    losses, grad norms and final parameters within ``REG_ATOL`` /
+    ``REG_RTOL``. The optimizer is ``pick_optimizer``'s for the full config
+    (``REG_ADAMW8BIT`` takes 8-bit AdamW), at a constant ``REG_LR``; remat
+    "full", "dots" on ``REG_DOTS``; qwen2-vl with ``VIS_TOKENS`` stub
+    patches, whisper with ``ENC_FRAMES`` frames of memory and without it.
+    On the card the block-sparse layers launch the kernel twice a step.
+    Returns the launches."""
+    from repro_torch import optim
+    from repro_torch.configs import get_config, list_archs
+    from repro_torch.kernels.sparse_attn.kernel import FLASH_HEAD_DIMS
+    from repro_torch.launch import specs
+    from repro_torch.sparsity import build_arch_mask, compile_mask
+
+    rng = np.random.default_rng(seed)
+    runs = [(a, False) for a in archs or list_archs()]
+    runs += [(a, True) for a, _ in runs if a == "whisper-base"]
+    SK.reset_launch_counts()
+    want_launches, worst, lines = 0, 0.0, []
+    t0 = time.perf_counter()
+    for arch, memory in runs:
+        cfg = _reduced_train_cfg(arch, FLASH_HEAD_DIMS)
+        sparse = cfg.attn_impl == "sparse"
+        lists = (compile_mask(build_arch_mask(
+            REG_SEQ // cfg.sparse_block, pattern="local_global",
+            window_blocks=1, n_global=1)) if sparse else None)
+        n_extra = specs.VIS_TOKENS if cfg.frontend == "vision" else 0
+        batches = []
+        for _ in range(REG_TRAIN_STEPS):
+            b = {"tokens": rng.integers(1, cfg.vocab, (2, REG_SEQ - n_extra
+                                                       + 1)),
+                 "mask": (rng.random((2, REG_SEQ - n_extra + 1))
+                          < 0.9).astype(np.float32)}
+            if n_extra:
+                b["extra_embeds"] = rng.standard_normal(
+                    (2, n_extra, cfg.d_model)).astype(np.float32)
+            if memory:
+                b["memory"] = rng.standard_normal(
+                    (2, specs.ENC_FRAMES, cfg.d_model)).astype(np.float32)
+            batches.append({k: torch.from_numpy(v) for k, v in b.items()})
+        name = ("adamw8bit" if arch == REG_ADAMW8BIT
+                else specs.pick_optimizer(get_config(arch)).name)
+        remat = "dots" if arch == REG_DOTS else "full"
+        cpu = T.init_lm(cfg, seed, device="cpu")
+        res = {}
+        for dev in ("cpu", device):
+            p = tree_map(lambda t: t.detach().to(dev, copy=True), cpu)
+            opt = getattr(optim, name)(REG_LR)
+            state = TR.TrainState(p, opt.init(p), 0)
+            step = TR.make_train_step(cfg, opt, remat=remat,
+                                      block_lists=lists)
+            out = []
+            for b in batches:
+                state, m = step(state, {k: v.to(dev) for k, v in b.items()})
+                out += [m["loss"].detach().cpu(),
+                        m["grad_norm"].detach().cpu()]
+            res[dev] = out + [t.detach().cpu() for t in _leaves(
+                state["params"])]
+        for got, want in zip(res[device], res["cpu"]):
+            g, w = got.float().numpy(), want.float().numpy()
+            err = float(np.abs(g - w).max())
+            worst = max(worst, err)
+            if not np.allclose(g, w, atol=REG_ATOL, rtol=REG_RTOL):
+                raise AssertionError(
+                    f"{arch} (memory={memory}) training: card and CPU "
+                    f"differ by up to {err:.3g}")
+        n_global = sum(k.startswith("attn") and "local" not in k
+                       for k in cfg.block_kinds())
+        if sparse:
+            want_launches += 2 * REG_TRAIN_STEPS * cfg.n_superblocks * n_global
+        lines.append(f"{arch}{' + memory' if memory else ''} ({name}, "
+                     f"remat {remat}, attn {cfg.attn_impl}) losses "
+                     + " / ".join(f"{float(x):.4f}"
+                                  for x in res[device][0:2 * REG_TRAIN_STEPS:2]))
+    launches = SK.launch_counts["sparse_flash_attention"]
+    log(f"registry train (reduced, f32 compute, card vs CPU, "
+        f"{REG_TRAIN_STEPS} steps, lr {REG_LR}, batch 2 x {REG_SEQ} "
+        f"positions): " + "; ".join(lines) + f". Losses, grad norms and "
+        f"every parameter agree to {worst:.3g} (tolerance {REG_ATOL} + "
+        f"{REG_RTOL} x |value|); sparse_flash_attention launches {launches} "
+        f"(2 a block-sparse layer a step: {want_launches}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    if device == "cuda" and launches != want_launches:
+        raise AssertionError("the reduced registry's training did not launch "
+                             "sparse_flash_attention twice a layer a step")
+    return launches
 
 
 # =============================================================================
@@ -3373,6 +3753,18 @@ def main(argv=None) -> int:
     launcher_path(torch, LT, simulate_failure)
     flop_rates(cfg, train_ms, comp_ms, serve_rates)
     log(f"launcher and FLOP rate phases: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    qwen_launches, qwen_row = qwen_train_path(torch, T, SK, SR, TR,
+                                              args.seed, regs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"sparse_flash_attention at {QWEN_ARCH}'s training shape (JSON; "
+        f"{card_line()}): " + json.dumps(qwen_row))
+    log(f"qwen train phase: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    reg_train_launches = registry_train_path(torch, T, SK, TR, tree_map,
+                                             args.seed)
+    log(f"registry train phase: {time.perf_counter() - t:.1f} s")
     by_name = {r["name"]: r for r in rows}
     by_name["intersect_dispatch"]["paper_launches"] = \
         paper_launches["intersect_dispatch"]
@@ -3381,6 +3773,10 @@ def main(argv=None) -> int:
     for name in ("intersect_dispatch", "intersect_dispatch_stacked",
                  "sparse_flash_attention"):
         by_name[name]["compressed_train_launches"] = comp_launches[name]
+    by_name["sparse_flash_attention"]["qwen_train_launches"] = \
+        qwen_launches["sparse_flash_attention"]
+    by_name["sparse_flash_attention"]["registry_train_launches"] = \
+        reg_train_launches
     log(f"total: {time.perf_counter() - t_start:.1f} s")
 
     print(card_line(), flush=True)

@@ -33,6 +33,19 @@ def leaves_with_paths(tree: Any, prefix: tuple = ()) -> List[tuple]:
     return [(prefix, tree)]
 
 
+def leaf_nodes(like: Any, tree: Any) -> List[Any]:
+    """The nodes of ``tree`` at the positions of ``like``'s leaves, in
+    ``leaves`` order: for a tree shaped like ``like`` whose leaves are
+    trees themselves (an optimizer's per-parameter state)."""
+    if isinstance(like, dict):
+        return [x for k in sorted(like) for x in leaf_nodes(like[k],
+                                                            tree[k])]
+    if isinstance(like, (list, tuple)):
+        return [x for a, b in zip(like, tree, strict=True)
+                for x in leaf_nodes(a, b)]
+    return [tree]
+
+
 def unflatten(like: Any, flat: List[Any]) -> Any:
     """A tree shaped like ``like`` whose leaves are ``flat``, in order."""
     it = iter(flat)

@@ -39,6 +39,30 @@ def data_axes(axes: Sequence[str], count: int = 1,
         _DATA_AXES, _DATA_COUNT, _MODEL_AXIS, _MESH = prev
 
 
+def make_mesh(shape: Sequence[int], names: Sequence[str]):
+    """A ``DeviceMesh`` of ``shape`` with dimension ``names`` over the ranks
+    of the default process group in order (rank ``r`` at row-major position
+    ``r``), for the launcher to declare with ``data_axes``. The group must
+    be initialized with exactly ``prod(shape)`` ranks. The mesh is on
+    "cuda" under NCCL, else on "cpu"."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if len(shape) != len(names):
+        raise ValueError(f"mesh shape {tuple(shape)} and names "
+                         f"{tuple(names)} differ in length")
+    n = 1
+    for s in shape:
+        n *= int(s)
+    world = dist.get_world_size() if dist.is_initialized() else 0
+    if world != n:
+        raise ValueError(f"a {tuple(shape)} mesh needs a process group of "
+                         f"{n} ranks (have {world})")
+    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return DeviceMesh(device_type, torch.arange(n).reshape(tuple(shape)),
+                      mesh_dim_names=tuple(names))
+
+
 def data_shard_count() -> int:
     """Number of data-parallel shards (1 outside a launcher context)."""
     return _DATA_COUNT if _DATA_AXES else 1

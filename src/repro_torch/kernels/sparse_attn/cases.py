@@ -109,6 +109,13 @@ def no_live_position(c: dict) -> np.ndarray:
 FLASH_GRID = tuple((G, D, softcap, causal) for G in (1, 2)
                    for D in (64, 128, 256) for softcap in (None, 50.0)
                    for causal in (True, False))
+# the registry's training pairs (G, D) beyond the grid, each causal, in bf16
+# and f32: llama4 5 / 128, dbrx 6 / 128, qwen2-vl and jamba 8 / 128,
+# starcoder2 12 / 128 (an even G above 2: several GQA pairs a KV head),
+# stablelm-3b 1 / 80; softcap off and on in turn
+FLASH_REGISTRY_GRID = tuple(
+    (G, D, softcap, True) for (G, D), softcap in zip(
+        REGISTRY_PAIRS, (None, 50.0, None, 50.0, None)))
 FLASH_BLOCK = 128
 FLASH_LISTS = ((2,), (), (0, 1, 2), (3, 1), (4, 2), (4, 0, 3))
 FLASH_NAN_BLOCK = 5

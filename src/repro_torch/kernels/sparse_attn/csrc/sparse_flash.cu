@@ -48,6 +48,11 @@
 //     after its own rows, and only sub-tiles that cross a warp's diagonal
 //     are masked per element; masked scores give p = 0 exactly (a select,
 //     never a product), so a row without a live score stays zeros.
+// D need not be a power of two, only a multiple of 16: D = 80 (stablelm-3b)
+// is a bf16 row of 160 bytes, ten 16-byte vectors and five k-steps of the
+// QK product; its padded row of 176 bytes still puts the eight rows of an
+// ldmatrix on distinct banks. The f32 kernel gives each thread D / 16
+// output columns.
 // f32 (`sparse_flash_f32_kernel`): the first design on the CUDA cores, in
 // f32 throughout, since neither bf16 tensor cores nor TF32 keep f32's
 // precision. A block owns 64 query rows of one (batch, head) and walks
@@ -614,7 +619,7 @@ int launch_d(int dtype, const void* q, const void* k, const void* v,
 
 // q [B, H, S, D], k / v [B, KVH, S_kv, D] contiguous, of one dtype (0 =
 // float32, 1 = bfloat16); kv_idx int32[S / block_q, max_active], counts
-// int32[S / block_q]; out like q. D in {16, 32, 64, 128, 256}; block_q a
+// int32[S / block_q]; out like q. D in {16, 32, 64, 80, 128, 256}; block_q a
 // multiple of 64, block_kv of 32; H a multiple of KVH. softcap <= 0 means
 // no softcap. Returns a cudaError_t code.
 extern "C" int sparse_attn_sparse_flash(
@@ -636,6 +641,7 @@ extern "C" int sparse_attn_sparse_flash(
     SPARSE_FLASH_CASE(16)
     SPARSE_FLASH_CASE(32)
     SPARSE_FLASH_CASE(64)
+    SPARSE_FLASH_CASE(80)
     SPARSE_FLASH_CASE(128)
     SPARSE_FLASH_CASE(256)
 #undef SPARSE_FLASH_CASE

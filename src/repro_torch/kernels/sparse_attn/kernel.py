@@ -32,9 +32,10 @@ MAX_HEAD_DIM = 256      # kMaxD in the source
 # the blocks per SM the split length is cut down for
 DECODE_SPLITS = (512, 256, 128, 64)
 DECODE_BLOCKS_PER_SM = 8
-# sparse_flash.cu: the head dims it is built for, the query rows of one
-# block (block_q is a multiple) and the keys of one sub-tile (block_kv is)
-FLASH_HEAD_DIMS = (16, 32, 64, 128, 256)
+# sparse_flash.cu: the head dims it is built for (80: stablelm-3b), the
+# query rows of one block (block_q is a multiple) and the keys of one
+# sub-tile (block_kv is)
+FLASH_HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 FLASH_Q_TILE = 64
 FLASH_KV_TILE = 32
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}

@@ -1,1 +1,2 @@
-"""Launch layer: the serving driver."""
+"""Launch layer: production meshes, cell specs, training and serving
+drivers."""

@@ -6,9 +6,12 @@ fault-tolerant loop with async checkpoints.
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b \
         --reduced --steps 50 --batch 8 --seq 256          # on the card
 
-Runs on the card unless ``--device cpu`` is given. Weights are random,
-drawn from seed 0 as the reference's are; checkpoints go to ``--ckpt``
-(default: a directory under the system's temporary directory).
+``--arch`` takes every architecture of the registry. As in the reference's
+launcher, batches carry tokens and a loss mask only (no vision patches and
+no encoder memory) and the optimizer is AdamW. Runs on the card unless
+``--device cpu`` is given. Weights are random, drawn from seed 0 as the
+reference's are; checkpoints go to ``--ckpt`` (default: a directory under
+the system's temporary directory).
 """
 
 from __future__ import annotations
@@ -21,18 +24,13 @@ import time
 import torch
 
 from repro_torch import _device
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, list_archs
 from repro_torch.data import (BitmapIndex, DataPipeline, PipelineState,
                               SyntheticCorpus)
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw, cosine_schedule
 from repro_torch.runtime import ResilientTrainer
 from repro_torch.train import TrainState, make_train_step
-
-
-# the architectures whose training the port holds to the reference; the
-# others serve only, until their training slice (ROADMAP queue 1)
-TRAIN_ARCHS = ("gemma2-2b", "stablelm-1.6b")
 
 
 def build_data(cfg, batch: int, seq: int, query: str, seed: int = 0,
@@ -50,7 +48,7 @@ def main(argv=None, *, failure_source=None):
     ``failure_source(step)`` (``runtime.simulate_failure``) may raise to
     drill the restart path."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="gemma2-2b", choices=TRAIN_ARCHS)
+    ap.add_argument("--arch", default="gemma2-2b", choices=list_archs())
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8)

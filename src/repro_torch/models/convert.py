@@ -10,8 +10,8 @@ axis; the encoder-decoder pattern adds ``encoder`` (leaves stacked over
 they become the port's parameters with the same structure, names and
 layouts (``wq`` ``[d, H, hd]``, ``wo`` ``[H, hd, d]``, ...), so both
 packages compute from the same numbers. A reference ``TrainState``
-(``{"params", "opt": {"m", "v"}, "step"}``, AdamW's moments shaped like
-the parameters) comes over with ``state_from_numpy``.
+(``{"params", "opt", "step"}``, with AdamW's, Adafactor's or 8-bit AdamW's
+state) comes over with ``state_from_numpy``.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch import _device
+from repro_torch import _device, _tree
 
 from .config import ModelConfig
 
@@ -59,16 +59,35 @@ def params_from_numpy(tree, cfg: ModelConfig, *, device=None) -> dict:
     return out
 
 
+_LEAF_STATES = ({"v"}, {"vr", "vc"}, {"mq", "ms", "vq", "vs"})
+
+
 def state_from_numpy(tree, cfg: ModelConfig, *, device=None) -> dict:
-    """A reference AdamW ``TrainState`` (numpy leaves) -> the port's
+    """A reference ``TrainState`` (numpy leaves) -> the port's
     ``train.TrainState`` on ``device`` (``None``: the card): parameters,
-    moments ``m`` / ``v`` (f32, shaped like the parameters) and the step."""
-    if set(tree) != {"params", "opt", "step"} or set(tree["opt"]) != {"m",
-                                                                      "v"}:
-        raise ValueError("expected an AdamW train state {params, opt: {m, "
-                         f"v}}, step}}, got keys {sorted(tree)}")
-    return {"params": params_from_numpy(tree["params"], cfg, device=device),
-            "opt": {k: params_from_numpy(tree["opt"][k], cfg, device=device)
-                    for k in ("m", "v")},
+    the optimizer state and the step. The optimizer state is AdamW's ``{m,
+    v}`` (f32 trees shaped like the parameters), or a tree shaped like the
+    parameters whose leaves are Adafactor's ``{vr, vc}`` / ``{v}`` or 8-bit
+    AdamW's ``{mq, ms, vq, vs}``."""
+    if set(tree) != {"params", "opt", "step"}:
+        raise ValueError("expected a train state {params, opt, step}, got "
+                         f"keys {sorted(tree)}")
+    params = params_from_numpy(tree["params"], cfg, device=device)
+    opt = tree["opt"]
+    if isinstance(opt, dict) and set(opt) == {"m", "v"}:
+        opt = {k: params_from_numpy(opt[k], cfg, device=device)
+               for k in ("m", "v")}
+    else:
+        nodes = _tree.leaf_nodes(tree["params"], opt)
+        if any(not isinstance(n, dict) or set(n) not in _LEAF_STATES
+               for n in nodes):
+            raise ValueError("expected AdamW's {m, v} or a per-parameter "
+                             "optimizer state with keys "
+                             f"{[sorted(k) for k in _LEAF_STATES]}")
+        dev = _device.resolve(device)
+        opt = _tree.unflatten(tree["params"], [
+            {k: torch.from_numpy(np.array(np.asarray(v))).to(dev)
+             for k, v in n.items()} for n in nodes])
+    return {"params": params, "opt": opt,
             "step": torch.tensor(int(np.asarray(tree["step"])),
                                  dtype=torch.int32)}

@@ -5,7 +5,9 @@ Layers are stacked per *super-block* as in the reference: ``params
 ["blocks"]`` holds one dict per block kind of the super-block, each leaf
 with a leading ``n_superblocks`` axis, and a Python loop over super-blocks
 takes the place of the reference's ``lax.scan``; ``remat="full"``
-checkpoints each super-block, as the reference checkpoints its scan body.
+checkpoints each super-block, as the reference checkpoints its scan body,
+and ``remat="dots"`` checkpoints it keeping the outputs of its matrix
+products (the reference's ``checkpoint_dots`` policy).
 
 Supports dense GQA decoders, gemma2's local / global alternation with
 softcaps, MoE (uniform or alternating), jamba's 7:1 Mamba / attention
@@ -19,11 +21,14 @@ patterns.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Optional
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from repro_torch import _device
 from repro_torch.distributed import context as dctx
@@ -159,6 +164,22 @@ def _superblock(params: dict, x: torch.Tensor, i: int, cfg: ModelConfig,
     return dctx.constrain_batch(x), aux
 
 
+# the matrix products whose outputs remat="dots" keeps: what matmul, einsum
+# and the projections lower to
+_DOT_OPS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                      torch.ops.aten.addmm.default,
+                      torch.ops.aten.baddbmm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOT_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+_dots_context = functools.partial(create_selective_checkpoint_contexts,
+                                  _dots_policy)
+
+
 def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
             block_lists=None, extra_embeds: Optional[torch.Tensor] = None,
             memory: Optional[torch.Tensor] = None, remat: str = "none"):
@@ -170,17 +191,16 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
     pattern. ``block_lists``: optional (kv_idx, counts) tensors on the
     tokens' device for the Roaring block-sparse path of global layers
     (``cfg.attn_impl == "sparse"``). ``aux_loss``: the MoE layers' summed
-    load-balancing loss (0 without MoE). ``remat``: "none" or "full" (each
+    load-balancing loss (0 without MoE). ``remat``: "none", "full" (each
     super-block is recomputed in the backward, so only super-block inputs
-    are kept).
+    are kept) or "dots" (the same, but the outputs of the super-block's
+    matrix products are kept and not recomputed). Under both, a kernel
+    launched through ``ctypes`` (the block-sparse attention forward) runs
+    again in the recompute: the policy sees only torch's own operators.
     """
-    if remat == "dots":
-        raise NotImplementedError(
-            'remat="dots" (save only matmul outputs) is not ported yet; it '
-            "comes with the training slice of these architectures (ROADMAP "
-            "queue 1)")
-    if remat not in ("none", "full"):
-        raise ValueError(f"remat must be 'none' or 'full' (got {remat!r})")
+    if remat not in ("none", "full", "dots"):
+        raise ValueError("remat must be 'none', 'full' or 'dots' (got "
+                         f"{remat!r})")
     x = _embed(params, tokens, cfg)
     if extra_embeds is not None:
         x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
@@ -188,9 +208,11 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_superblocks):
-        if remat == "full":
+        if remat != "none":
             x, a = checkpoint(_superblock, params, x, i, cfg, positions,
-                              block_lists, memory, use_reentrant=False)
+                              block_lists, memory, use_reentrant=False,
+                              context_fn=(_dots_context if remat == "dots"
+                                          else noop_context_fn))
         else:
             x, a = _superblock(params, x, i, cfg, positions, block_lists,
                                memory)

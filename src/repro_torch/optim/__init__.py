@@ -1,6 +1,9 @@
-"""``repro_torch.optim`` — AdamW with the reference's f32 arithmetic,
-updating the optimizer state and the parameters in place."""
+"""``repro_torch.optim`` — AdamW, Adafactor and 8-bit AdamW with the
+reference's f32 arithmetic, updating the optimizer state and the
+parameters in place."""
 
-from .optimizers import OptimizerDef, adamw, clip_by_global_norm, cosine_schedule
+from .optimizers import (OptimizerDef, adafactor, adafactor_factored, adamw,
+                         adamw8bit, clip_by_global_norm, cosine_schedule)
 
-__all__ = ["OptimizerDef", "adamw", "clip_by_global_norm", "cosine_schedule"]
+__all__ = ["OptimizerDef", "adafactor", "adafactor_factored", "adamw",
+           "adamw8bit", "clip_by_global_norm", "cosine_schedule"]

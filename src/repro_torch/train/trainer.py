@@ -1,7 +1,11 @@
 """Train-step builder: remat, microbatching, mixed precision, grad clipping.
 
-Parameters stay f32 and every layer computes in ``cfg.compute_dtype``, as
-in the reference. The step updates the train state **in place** (the
+Parameters keep ``cfg.param_dtype`` and every layer computes in
+``cfg.compute_dtype``, as in the reference. A leaf that the loss does not
+reach (whisper's encoder, which the train step never runs, since the batch
+carries the encoder's output as ``memory``; the cross-attention without
+``memory``) gets a zero gradient, as JAX gives it, so weight decay and
+Adafactor still update it. The step updates the train state **in place** (the
 optimizer's moments and the parameters; see ``optim``) and returns the same
 dict. ``grad_compression={"axis": ..., "ratio": ...}`` replaces the
 gradients by their Roaring top-k mean over the declared mesh's ``axis``
@@ -32,14 +36,17 @@ def _device_of(params) -> torch.device:
 
 def make_train_step(cfg: ModelConfig, optimizer: OptimizerDef, *,
                     microbatch: Optional[int] = None,
-                    remat: str = "none",              # none | full
+                    remat: str = "none",              # none | full | dots
                     max_grad_norm: float = 1.0,
                     grad_compression: Optional[dict] = None,
                     block_lists=None) -> Callable:
     """Returns ``train_step(state, batch) -> (state, metrics)``.
 
     batch: {"tokens": int[B, S+1], "mask": float[B, S+1]} (tensors or numpy
-    arrays) — inputs are tokens[:, :-1], labels tokens[:, 1:]. ``block_lists``
+    arrays) — inputs are tokens[:, :-1], labels tokens[:, 1:] — and
+    optionally "extra_embeds" ([B, S_m, d], the vision stub's patches) and
+    "memory" ([B, S_enc, d], the encoder's output), passed to ``forward``
+    and sliced per microbatch as the tokens are. ``block_lists``
     (kv_idx, counts) from ``sparsity.compile_mask`` feed the block-sparse
     attention of global layers when ``cfg.attn_impl == "sparse"``. metrics:
     ``loss`` and ``grad_norm`` (before clipping), 0-d f32 tensors on the
@@ -56,9 +63,10 @@ def make_train_step(cfg: ModelConfig, optimizer: OptimizerDef, *,
                                   for a in block_lists)
         return lists_on[dev]
 
-    def loss_fn(params, tokens, labels, mask):
+    def loss_fn(params, tokens, labels, mask, extra_embeds, memory):
         logits, aux = T.forward(params, tokens, cfg,
                                 block_lists=lists_for(tokens.device),
+                                extra_embeds=extra_embeds, memory=memory,
                                 remat=remat)
         logits = logits.float()
         # logsumexp form; the label's logit by a gather, which gives the
@@ -69,22 +77,26 @@ def make_train_step(cfg: ModelConfig, optimizer: OptimizerDef, *,
         denom = torch.clamp(mask.sum(), min=1.0)
         return (nll * mask).sum() / denom + 0.01 * aux
 
-    def grad_fn(flat, params, tokens, labels, mask):
-        loss = loss_fn(params, tokens, labels, mask)
-        return loss.detach(), torch.autograd.grad(loss, flat)
+    def grad_fn(flat, params, *inputs):
+        loss = loss_fn(params, *inputs)
+        return loss.detach(), torch.autograd.grad(
+            loss, flat, allow_unused=True, materialize_grads=True)
 
     def compute_grads(params, batch):
         dev = _device_of(params)
         toks = torch.as_tensor(batch["tokens"]).to(dev)
         msk = torch.as_tensor(batch["mask"]).to(dev, torch.float32)
-        tokens, labels, mask = toks[:, :-1], toks[:, 1:], msk[:, 1:]
+        extra, memory = (None if batch.get(k) is None
+                         else torch.as_tensor(batch[k]).to(dev)
+                         for k in ("extra_embeds", "memory"))
+        inputs = (toks[:, :-1], toks[:, 1:], msk[:, 1:], extra, memory)
         flat = _tree.leaves(params)
         for p in flat:
             p.requires_grad_(True)
         if microbatch is None:
-            loss, grads = grad_fn(flat, params, tokens, labels, mask)
+            loss, grads = grad_fn(flat, params, *inputs)
             return loss, _tree.unflatten(params, list(grads))
-        B = tokens.shape[0]
+        B = toks.shape[0]
         if B % microbatch:
             raise ValueError(f"batch {B} is not a multiple of microbatch "
                              f"{microbatch}")
@@ -93,7 +105,8 @@ def make_train_step(cfg: ModelConfig, optimizer: OptimizerDef, *,
         acc = [torch.zeros_like(p, dtype=torch.float32) for p in flat]
         for i in range(n_micro):
             sl = slice(i * microbatch, (i + 1) * microbatch)
-            l, g = grad_fn(flat, params, tokens[sl], labels[sl], mask[sl])
+            l, g = grad_fn(flat, params, *(None if x is None else x[sl]
+                                           for x in inputs))
             loss = loss + l / n_micro
             for a, gi in zip(acc, g):
                 a.add_(gi.float() / n_micro)

@@ -33,7 +33,9 @@ with numpy:
   ``decompress_leaf(compress_leaf(g_r))``; ``reshard_tree`` places every
   leaf of the reduced parameters on its ``params_shardings`` placements and
   round-trips it (``full_tensor()`` equal to the input); ``elastic_remesh``
-  builds the ``(2, 1)`` and ``(1, 2, 1)`` meshes;
+  builds the ``(2, 1)`` and ``(1, 2, 1)`` meshes, ``launch.mesh.
+  make_test_mesh`` the ``(2, 1)`` ("data", "model") mesh, and
+  ``make_production_mesh`` refuses a group of 2 ranks;
 * two gloo ranks, for search: ``PostingIndex.shard`` of an odd row count
   (one padding row) gives a sharded ``topk`` equal to the reference's
   unsharded ``topk_by_card``.
@@ -69,6 +71,7 @@ from repro_torch import search as TS
 from repro_torch.configs import get_config as t_config
 from repro_torch.distributed import context
 from repro_torch.distributed import sharding as TSH
+from repro_torch.launch import mesh as launch_mesh
 from repro_torch.models import transformer as TT
 from repro_torch.optim import OptimizerDef
 from repro_torch.optim import adamw as t_adamw
@@ -311,6 +314,12 @@ def _train_worker(rank, world, store, want):
         assert m3.mesh_dim_names == ("pod", "data", "model")
         with pytest.raises(ValueError):
             elastic_remesh(("data", "model"), model_parallel=3)
+
+        tm = launch_mesh.make_test_mesh(data=2, model=1)
+        assert tm.shape == (2, 1) and tm.mesh_dim_names == ("data", "model")
+        assert tm.device_type == "cpu"
+        with pytest.raises(ValueError):        # 256 ranks, not 2
+            launch_mesh.make_production_mesh()
 
         cfg = t_config("gemma2-2b", reduced=True)
         params = TT.init_lm(cfg, SEED, device="cpu")

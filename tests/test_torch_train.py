@@ -33,11 +33,17 @@ the CPU, with inputs made from a seed with numpy:
   (``_torch_archs.check_forward_and_encode``);
 * inside the train-steps item: Roaring top-k gradient compression, the
   compressed train step and the sharding rules
-  (``_torch_distributed.check_grad_comp``), and ``models/flops.py``
-  (``_torch_baselines.check_flops``);
+  (``_torch_distributed.check_grad_comp``), ``models/flops.py``
+  (``_torch_baselines.check_flops``), and training every architecture of
+  the registry: Adafactor and 8-bit AdamW, two train steps of each reduced
+  config with ``pick_optimizer``'s optimizer (qwen2-vl's patches,
+  whisper's memory), ``remat="dots"`` and ``launch.specs``
+  (``_torch_train_archs.check_optimizers_and_train_steps``);
 * inside the resilient-training item: the compressed cross-pod mean,
-  ``elastic_remesh`` and ``reshard_tree`` over two gloo ranks
-  (``_torch_distributed.check_two_rank_training``).
+  ``elastic_remesh``, ``reshard_tree`` and ``launch.mesh`` over two gloo
+  ranks (``_torch_distributed.check_two_rank_training``), and the training
+  launcher for whisper-base and jamba
+  (``_torch_train_archs.check_launcher_archs``).
 
 Tolerances (float32 throughout, sums taken in another order): attention
 outputs and gradients ``ATOL`` / ``RTOL``; loss and grad norm ``RTOL``;
@@ -57,6 +63,8 @@ import torch
 from _torch_archs import check_forward_and_encode
 from _torch_baselines import check_flops
 from _torch_distributed import check_grad_comp, check_two_rank_training
+from _torch_train_archs import (check_launcher_archs,
+                                check_optimizers_and_train_steps)
 from _torch_parity import release_jax_executables  # noqa: F401
 from repro import sparsity as RS
 from repro.configs import get_config as ref_config
@@ -316,6 +324,7 @@ def test_train_steps_match_reference():
                    atol=P_ATOL)
     check_grad_comp()
     check_flops()
+    check_optimizers_and_train_steps()
 
 
 def test_resilient_training_matches_uninterrupted(tmp_path):
@@ -323,8 +332,9 @@ def test_resilient_training_matches_uninterrupted(tmp_path):
     the final parameters equal an uninterrupted run's, bit for bit; the
     reference reads the port's checkpoints leaf for leaf. Then the
     distributed layer that recovery and the cross-pod mean run on, over
-    two gloo ranks: the compressed cross-pod mean, ``elastic_remesh`` and
-    ``reshard_tree``."""
+    two gloo ranks: the compressed cross-pod mean, ``elastic_remesh``,
+    ``reshard_tree`` and ``launch.mesh``; and the launcher for two more
+    architectures (whisper-base, jamba)."""
     argv = ["--arch", "gemma2-2b", "--reduced", "--steps", "6", "--batch",
             "2", "--seq", "64", "--ckpt-every", "2", "--log-every", "100",
             "--device", "cpu"]
@@ -349,3 +359,4 @@ def test_resilient_training_matches_uninterrupted(tmp_path):
                          _tree.leaves(whole["state"])):
         assert np.array_equal(np.asarray(got), _np(want))
     check_two_rank_training()
+    check_launcher_archs(tmp_path)
