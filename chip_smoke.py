@@ -61,7 +61,17 @@ paths of the port end to end:
   rule, then one step under remat "dots" held to "full"; and every
   reduced config trained two steps on the card against the CPU
   (``pick_optimizer``'s optimizer, 8-bit AdamW and remat "dots" on one
-  config each, qwen2-vl's patches, whisper with and without memory).
+  config each, qwen2-vl's patches, whisper with and without memory);
+* the dry run (``launch/dryrun.py``) of every architecture x shape x
+  production mesh on ``meta`` tensors, then ``launch.specs.build_cell``'s
+  gemma2-2b long_500k decode cell realized on the card at full width and
+  depth (batch 1, a dense KV cache of 524,288 positions): every leaf
+  realized with the built shape and dtype; its first 8 positions are held
+  to a 64-position cache; 8 steps at the last positions of a cache seeded
+  below them are timed; and the last global layer's dense attention is
+  held to the paged decode kernel over the same 524,288 rows seen as pages
+  12 GiB and more into a pool of the whole stacked cache, first as the
+  step left them, then with a few rows planted to carry the softmax.
 
 It then times each kernel on the inputs its path gave it (device time
 alone: a spin on the card ahead of each start event outlasts the host's
@@ -80,6 +90,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -130,6 +141,41 @@ LOGIT_ULP = 2.0 ** -7
 # (one ulp is 2**-7 below magnitude 2)
 BF16_ATOL = 1e-2
 F32_ATOL = 1e-5
+
+# the dry run (launch/dryrun.py: 10 architectures x 4 shapes x 2 meshes) and
+# build_cell's long_500k decode cell realized on the card at full width and
+# depth: gemma2-2b, batch 1, a dense cache of 524,288 positions, on a
+# one-rank mesh. Its first LONG_STEPS positions are held to the same steps
+# through a LONG_SHORT_CACHE-position cache. Masked columns add nothing,
+# so only the order of sums differs: in f32 compute (one super-block, the
+# cell's widths) the logits agree within LONG_F32_RTOL of the largest; in
+# the cell's bf16 compute such differences round to other bf16 values, so
+# every logit is held to the serving rule (LOGIT_ULP: one bf16 ulp in each
+# element of the final hidden state). Then the cache below the last
+# LONG_STEPS positions is filled from the seed, LONG_STEPS steps there are
+# timed, and the last one's global-layer dense attention is held to
+# paged_decode over the same rows seen as pages of LONG_PAGE. The pool is
+# the whole stacked cache of that layer kind, so the last super-block's
+# pages lie 12 GiB and more into it. Both outputs are bf16, so the
+# tolerance scales with the output: LONG_PAGED_ULPS bf16 ulps of its
+# largest element (a softmax over 524,288 random rows gives outputs near
+# 1e-3, where a flat 1e-2 would pass a kernel that returned zeros). Then
+# LONG_PLANTED rows (position, query head of the group, score before the
+# softcap) are planted in that layer's pages for a seeded query of unit
+# variance, so the planted rows carry all but ~1e-6 of the softmax and a
+# page read from the wrong place moves the output by O(1)
+DRY_ARCHS = ("gemma2-2b", "qwen2-vl-72b", "dbrx-132b")
+DRY_CELLS = 80
+LONG_ARCH = "gemma2-2b"
+LONG_SHAPE = "long_500k"
+LONG_MESH = {"data": 1, "model": 1}
+LONG_STEPS = 8
+LONG_SHORT_CACHE = 64
+LONG_F32_RTOL = 1e-4
+LONG_PAGE = 16
+LONG_PAGED_ULPS = 2
+LONG_PLANTED = ((-1, 0, 30.0), (1 << 18 | 7, 0, 29.5),
+                (-LONG_PAGE - 3, 1, 30.0), (12_345, 1, 29.5))
 
 # the registry's other architectures. dbrx-132b at full width behind the
 # paged engine, cut to 8 of its 40 layers (bf16 weights, 6.52 GB a layer:
@@ -3600,6 +3646,332 @@ def flop_rates(cfg, train_ms, comp_ms, serve_rates, device="cuda"):
         f"{BF16_TFLOPS:.0f}) ({card})")
 
 
+def dryrun_phase(DR):
+    """``launch.dryrun`` over every architecture, shape and mesh, on the
+    host (``meta`` tensors; the card is not touched), into a temporary
+    directory; its per-cell lines go to a log there. One line: the cells
+    that are ok, and for ``DRY_ARCHS`` each cell's per-rank GB of
+    arguments and the dominant roofline term."""
+    import contextlib
+    with tempfile.TemporaryDirectory() as out:
+        with open(os.path.join(out, "dryrun.log"), "w") as f, \
+                contextlib.redirect_stdout(f):
+            recs = DR.main(["--archs", "all", "--shapes", "all", "--meshes",
+                            "single,multi", "--out", out,
+                            "--no-skip-existing"])
+    bad = [f"{r['cell']}: {r.get('error')}" for r in recs if not r["ok"]]
+    summary = {a: {f"{r['shape']} {r['chips']}": [
+        round(r["arg_bytes"]["total"] / 1e9, 4),
+        r["roofline"]["dominant"]] for r in recs if r["arch"] == a}
+        for a in DRY_ARCHS}
+    log(f"dry run: {len(recs) - len(bad)}/{len(recs)} cells ok (per-rank "
+        "GB of arguments, dominant roofline term, the collectives a model "
+        "of the placements; H100 figures; JSON): "
+        + json.dumps(summary))
+    if bad or len(recs) != DRY_CELLS:
+        raise AssertionError(f"dry run: {len(recs)} cells, failed: {bad}")
+
+
+def _masked_columns_f32(torch, T, cfg, S, seed, device):
+    """LONG_STEPS decode steps of one super-block of ``cfg`` in f32 compute
+    (its widths; caches f32) through an ``S``-position cache and a
+    ``LONG_SHORT_CACHE``-position one: the largest logit difference over
+    the largest logit. Raises beyond LONG_F32_RTOL."""
+    c32 = dataclasses.replace(cfg, compute_dtype="float32",
+                              n_layers=cfg.superblock)
+    params = T.init_lm(c32, seed, device=device)
+    long, small = (T.init_decode_caches(c32, 1, n, device=device)
+                   for n in (S, LONG_SHORT_CACHE))
+    gen = torch.Generator(device=device).manual_seed(seed)
+    toks = torch.randint(1, c32.vocab, (LONG_STEPS, 1, 1), generator=gen,
+                         device=device, dtype=torch.int32)
+    err = 0.0
+    with torch.no_grad():
+        for i in range(LONG_STEPS):
+            pos = torch.full((1,), i, dtype=torch.int32, device=device)
+            got, _ = T.decode_step(params, long, toks[i], pos, c32)
+            ref, _ = T.decode_step(params, small, toks[i], pos, c32)
+            got, ref = got[..., :c32.vocab], ref[..., :c32.vocab]
+            err = max(err, ((got - ref).abs().max()
+                            / ref.abs().max()).item())
+    del params, long, small, got, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not err <= LONG_F32_RTOL:
+        raise AssertionError(f"long_500k: in f32, masked columns changed "
+                             f"the logits by {err:.3g} of the largest")
+    return err
+
+
+def long_cell_path(torch, T, A, SP, DR, SK, SR, tree, seed, device="cuda"):
+    """``build_cell(LONG_ARCH, LONG_SHAPE, LONG_MESH)`` realized on the card
+    (parameters from the seed, zero caches, then ``serve_step``): every
+    leaf with the built shape and dtype, positions 0..LONG_STEPS-1 against
+    a ``LONG_SHORT_CACHE``-position cache, LONG_STEPS timed steps at the
+    last positions of a seeded cache, and at the last step one global
+    layer's dense attention against ``paged_decode`` over the same rows as
+    pages (``_long_paged_row``)."""
+    fn, args, specs, _, meta = SP.build_cell(LONG_ARCH, LONG_SHAPE,
+                                             LONG_MESH)
+    want = DR.arg_bytes(meta["kind"], args, specs, LONG_MESH)
+    from repro_torch.configs import get_config
+    cfg = get_config(LONG_ARCH)
+    S = meta["seq_len"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32_err = _masked_columns_f32(torch, T, cfg, S, seed, device)
+    base = torch.cuda.memory_allocated()
+    log(f"long_500k: {base / 1e9:.3f} GB allocated before realizing")
+    t = time.perf_counter()
+    params = T.init_lm(cfg, seed, device=device)
+    caches = [{k: torch.zeros(v.shape, dtype=v.dtype, device=device)
+               for k, v in c.items()} for c in args[1]]
+    batch = {k: torch.zeros(v.shape, dtype=v.dtype, device=device)
+             for k, v in args[2].items()}
+    torch.cuda.synchronize()
+    real = (params, caches, batch)
+    for (path, a), b in zip(tree.leaves_with_paths(args), tree.leaves(real)):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise AssertionError(f"long_500k: {path} realized as "
+                                 f"{tuple(b.shape)} {b.dtype}, built as "
+                                 f"{tuple(a.shape)} {a.dtype}")
+    log(f"long_500k realized in {time.perf_counter() - t:.1f} s: "
+        f"{len(tree.leaves(real))} tensors, each with the built shape and "
+        f"dtype, {torch.cuda.memory_allocated() - base} bytes allocated; "
+        f"the dry run's per-rank argument bytes {want['total']} (params "
+        f"{want['params']}, caches {want['caches']}, batch {want['batch']})")
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    toks = torch.randint(1, cfg.vocab, (LONG_STEPS, 1, 1), generator=gen,
+                         device=device, dtype=torch.int32)
+    table = (params["embed"] if cfg.tie_embeddings
+             else params["unembed"])["table"].abs()
+    hidden = []
+    unembed = T.common.unembed
+
+    def keep(tbl, x, **kw):             # each step's final hidden state
+        hidden.append(x)
+        return unembed(tbl, x, **kw)
+    small = T.init_decode_caches(cfg, 1, LONG_SHORT_CACHE, device=device)
+    worst = ratio = 0.0
+    T.common.unembed = keep
+    try:
+        with torch.no_grad():
+            for i in range(LONG_STEPS):
+                batch["tokens"].copy_(toks[i])
+                batch["pos"].fill_(i)
+                got, _ = fn(params, caches, batch)
+                ref, _ = T.decode_step(params, small, batch["tokens"],
+                                       batch["pos"], cfg)
+                x = hidden[-1].float().abs().reshape(1, -1)
+                tol = LOGIT_ULP * (x @ table.T)[0, :cfg.vocab]
+                off = (got - ref)[0, 0, :cfg.vocab].abs()
+                worst = max(worst, off.max().item())
+                ratio = max(ratio, (off / tol).max().item())
+                hidden.clear()
+    finally:
+        T.common.unembed = unembed
+    del small, got, ref, table, x, tol, off
+    log(f"long_500k positions 0-{LONG_STEPS - 1} against a "
+        f"{LONG_SHORT_CACHE}-position cache: max |logit difference| "
+        f"{worst:.4g}, {ratio:.3g} of the serving rule's tolerance (one bf16 "
+        f"ulp in each element of the final hidden state); f32 compute, "
+        f"one super-block: within {f32_err:.3g} of the largest logit "
+        f"(tolerance {LONG_F32_RTOL})")
+    if not ratio <= 1.0:
+        raise AssertionError("long_500k: masked columns changed the logits")
+
+    seeded = S - LONG_STEPS
+    t = time.perf_counter()
+    for c in caches:
+        for k in ("k", "v"):
+            c[k][:, :, :seeded].normal_(generator=gen)
+    torch.cuda.synchronize()
+    log(f"long_500k: K / V of positions below {seeded} drawn from the seed "
+        f"in {time.perf_counter() - t:.1f} s")
+    seen = []
+    orig = A.decode_attention
+
+    def spy(q, ck, cv, pos, cfg, *, layer_kind="attn_mlp", write=None):
+        out = orig(q, ck, cv, pos, cfg, layer_kind=layer_kind, write=write)
+        if "local" not in layer_kind:
+            seen[:] = [(q, ck, cv, pos, out, layer_kind)]
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    with torch.no_grad():
+        for i in range(LONG_STEPS):
+            batch["tokens"].copy_(toks[i])
+            batch["pos"].fill_(seeded + i)
+            if i == LONG_STEPS - 1:
+                A.decode_attention = spy
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            try:
+                logits, _ = fn(params, caches, batch)
+                torch.cuda.synchronize()
+            finally:
+                A.decode_attention = orig
+            step_ms.append((time.perf_counter() - t) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    from torch.profiler import ProfilerActivity, profile
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn(params, caches, batch)             # the last position again
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    log(f"profile long_500k serve_step: one step, wall {wall_ms:.1f} ms; "
+        f"{device_summary(prof, wall_ms, top_n=8)} ({card_line()})")
+    del prof
+    if logits.shape != (1, 1, cfg.vocab_padded) or not bool(
+            torch.isfinite(logits[..., :cfg.vocab]).all()):
+        raise AssertionError("long_500k: bad logits at the last position")
+
+    log(f"long_500k serve_step ({LONG_ARCH}, batch 1, {S} positions, "
+        f"{card_line()}): {np.mean(step_ms):.2f} ms a step over "
+        f"{LONG_STEPS} steps at positions {seeded}-{S - 1} (each "
+        f"{', '.join(f'{x:.2f}' for x in step_ms)}); peak "
+        f"{peak / 1e9:.3f} GB allocated against the dry run's "
+        f"{want['total'] / 1e9:.3f} GB of arguments")
+    # the parameters are done with: the plain version and the yardstick
+    # below need room beside the caches
+    q, ck, cv, pos, dense, kind = seen[0]
+    del params, logits, seen
+    gc.collect()
+    torch.cuda.empty_cache()
+    pool = next(c for c in caches if "k" in c and c["k"].untyped_storage(
+    ).data_ptr() == ck.untyped_storage().data_ptr())
+    row = _long_paged_row(torch, A, SK, SR, cfg, q, pool, ck, cv, pos,
+                          dense, kind, gen)
+    del caches, pool, batch, q, ck, cv, dense
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"step_ms": float(np.mean(step_ms)), "peak_bytes": peak,
+            "arg_bytes": want["total"], **row}
+
+
+def _bf16_ulps(x, n):
+    """``n`` bf16 ulps at the largest magnitude of ``x``."""
+    return n * 2.0 ** (math.floor(math.log2(x.abs().max().item())) - 7)
+
+
+def _long_paged_row(torch, A, SK, SR, cfg, q, pool, ck, cv, pos, dense,
+                    kind, gen):
+    """``paged_decode`` over one global layer's whole long cache (``ck`` /
+    ``cv``: [1, S, KVH, hd], super-block ``sb`` of the stacked ``pool``
+    {"k", "v"} [n_sb, 1, S, KVH, hd]) seen as pages of LONG_PAGE of the
+    whole stacked pool, so its page ids start at ``sb`` x the pages of a
+    super-block and its rows ``sb`` GiB into each pool:
+
+    * against that layer's dense attention ``dense`` at the last position
+      of the step, within LONG_PAGED_ULPS bf16 ulps of ``dense``'s largest
+      element;
+    * its time, bound, plain version's time and
+      ``scaled_dot_product_attention``'s over the same K / V (no softcap,
+      which it cannot apply);
+    * with the LONG_PLANTED rows written into the layer's pages for a
+      seeded query ``qm``: the port's dense attention (``decode_attention``)
+      against the softmax over the planted rows alone, and the kernel
+      against that dense attention, each within LONG_PAGED_ULPS ulps; and
+      losing any one planted row must move the output by more than four
+      times that tolerance, or the check would not see a wrong page."""
+    import torch.nn.functional as Fn
+    KVH, hd = cfg.n_kv_heads, cfg.hd
+    G = cfg.n_heads // KVH
+    S = ck.shape[1]
+    n_pages = S // LONG_PAGE
+    sb = ck.storage_offset() // pool["k"][0].numel()
+    if not (pool["k"][sb].data_ptr() == ck.data_ptr()
+            and pool["v"][sb].data_ptr() == cv.data_ptr()):
+        raise AssertionError("long_500k: the layer's cache is not a "
+                             "super-block of the stacked pool")
+    offset = sb * pool["k"][0].nbytes
+    if offset < 1 << 31:
+        raise AssertionError(f"long_500k: the layer's rows start only "
+                             f"{offset} bytes into the pool")
+    kp, vp = (pool[x].view(-1, LONG_PAGE, KVH, hd) for x in ("k", "v"))
+    lists = {"page_idx": sb * n_pages + np.arange(
+                 n_pages, dtype=np.int32)[None],
+             "counts": np.array([n_pages], np.int32),
+             "kv_len": pos.cpu().numpy().astype(np.int32) + 1,
+             "starts": np.zeros(1, np.int32)}
+    dev_lists = [torch.from_numpy(v).to(q.device) for v in lists.values()]
+    q4 = q.reshape(1, KVH, G, hd)
+
+    def call(qq):
+        return SK.paged_decode_cuda(qq, kp, vp, *dev_lists,
+                                    softcap=cfg.attn_softcap)
+    dense = dense.reshape(1, KVH, G, hd).float()
+    err = (call(q4).float() - dense).abs().max().item()
+    tol = _bf16_ulps(dense, LONG_PAGED_ULPS)
+    if not err <= tol:
+        raise AssertionError(f"long_500k: paged_decode disagrees with the "
+                             f"dense attention (max abs err {err:.4g}, "
+                             f"tolerance {tol:.4g})")
+    ms = time_ms(torch, lambda: call(q4), 20)
+    plain_ms = enqueue_time_ms(torch, lambda: SR.paged_decode_ref(
+        q4, kp, vp, *dev_lists, softcap=cfg.attn_softcap), 3)
+    k_seq, v_seq = (x.transpose(1, 2) for x in (ck, cv))
+    lib_ms = time_ms(torch, lambda: Fn.scaled_dot_product_attention(
+        q.reshape(1, cfg.n_heads, 1, hd), k_seq, v_seq, enable_gqa=True), 5)
+    del k_seq, v_seq
+    (bound, bound_by), n_live = paged_decode_bound(
+        q4, lists["page_idx"], lists["counts"], lists["kv_len"],
+        lists["starts"], LONG_PAGE)
+
+    # the planted rows: score t for query head g of every KV head
+    scale = hd ** -0.5
+    qm = torch.randn((1, KVH, G, hd), generator=gen, device=q.device).to(
+        q.dtype)
+    rows = [p % S for p, _, _ in LONG_PLANTED]
+    for p, (_, g, t) in zip(rows, LONG_PLANTED):
+        qg = qm[0, :, g].float()                           # [KVH, hd]
+        ck[0, p] = (t * qg / (scale * (qg * qg).sum(-1, keepdim=True))).to(
+            ck.dtype)
+        cv[0, p] = torch.randn((KVH, hd), generator=gen,
+                               device=q.device).to(cv.dtype)
+    kr, vr = ck[0, rows].float(), cv[0, rows].float()      # [R, KVH, hd]
+
+    def mixture(keep):          # the softmax over the planted rows alone
+        s = torch.einsum("kgd,rkd->kgr", qm[0].float(), kr[keep]) * scale
+        if cfg.attn_softcap is not None:
+            s = cfg.attn_softcap * torch.tanh(s / cfg.attn_softcap)
+        return torch.einsum("kgr,rkd->kgd", torch.softmax(s, -1), vr[keep])
+    mix = mixture(list(range(len(rows))))
+    lose = min((mixture([j for j in range(len(rows)) if j != i]) - mix)
+               .abs().max().item() for i in range(len(rows)))
+    planted = A.decode_attention(qm.reshape(1, 1, cfg.n_heads, hd), ck, cv,
+                                 pos, cfg, layer_kind=kind).reshape(
+                                     1, KVH, G, hd).float()
+    ptol = _bf16_ulps(planted, LONG_PAGED_ULPS)
+    mix_err = (planted[0] - mix).abs().max().item()
+    perr = (call(qm).float() - planted).abs().max().item()
+    row = {"name": "paged_decode", "shape": f"long_500k: B 1, KVH {KVH}, G "
+           f"{G}, D {hd}, {n_live} positions in {n_pages} pages of "
+           f"{LONG_PAGE}, page ids from {sb * n_pages} ({offset} bytes into "
+           f"each pool), bf16, softcap {cfg.attn_softcap}",
+           "max_abs_err_vs_dense": err, "tolerance": tol,
+           "max_abs_dense": dense.abs().max().item(),
+           "planted_rows": rows, "planted_err_vs_dense": perr,
+           "planted_dense_vs_mixture": mix_err, "planted_tolerance": ptol,
+           "planted_max_abs_dense": planted.abs().max().item(),
+           "planted_least_change_losing_a_row": lose,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+           "bound_by": bound_by, "library_ms": lib_ms}
+    log(f"paged_decode at long_500k against the last global layer's dense "
+        f"attention ({LONG_PAGED_ULPS} bf16 ulps of the largest output; "
+        f"JSON; {card_line()}): " + json.dumps(row))
+    if not (mix_err <= ptol and perr <= ptol and lose > 4 * ptol):
+        raise AssertionError("long_500k: with planted rows, paged_decode, "
+                             "the dense attention and the planted rows' "
+                             "softmax disagree, or losing a row would not "
+                             "show")
+    return {"paged_err": err, "paged_ms": ms, "paged_plain_ms": plain_ms,
+            "paged_bound_ms": bound, "paged_library_ms": lib_ms}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--terms", type=int, default=N_TERMS,
@@ -3642,6 +4014,10 @@ def main(argv=None) -> int:
     from repro_torch import train as TR
     from repro_torch import baselines as B
     from repro_torch import roaring as RS
+    from repro_torch import _tree
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import specs as SP
+    from repro_torch.models import attention as A
 
     # float32 matmuls and convolutions in full float32 (no TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3765,6 +4141,12 @@ def main(argv=None) -> int:
     reg_train_launches = registry_train_path(torch, T, SK, TR, tree_map,
                                              args.seed)
     log(f"registry train phase: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    dryrun_phase(DR)
+    log(f"dry run phase: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    long_cell_path(torch, T, A, SP, DR, SK, SR, _tree, args.seed)
+    log(f"long_500k phase: {time.perf_counter() - t:.1f} s")
     by_name = {r["name"]: r for r in rows}
     by_name["intersect_dispatch"]["paper_launches"] = \
         paper_launches["intersect_dispatch"]

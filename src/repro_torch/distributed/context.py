@@ -117,8 +117,13 @@ def constrain_batch(x: torch.Tensor) -> torch.Tensor:
     return _redistribute(x, (_axis("data"),) + (None,) * (x.ndim - 1))
 
 
+def placed(x) -> bool:
+    """Whether ``constrain`` acts on ``x``: a DTensor under ``data_axes``."""
+    return _DATA_AXES is not None and _is_dtensor(x)
+
+
 def constrain(x: torch.Tensor, dims: Sequence[Optional[str]]) -> torch.Tensor:
     """Pin arbitrary dims: dims entries are "data" | "model" | None."""
-    if _DATA_AXES is None or not _is_dtensor(x):
+    if not placed(x):
         return x
     return _redistribute(x, tuple(_axis(d) for d in dims))

@@ -152,18 +152,38 @@ def placements(spec: tuple, mesh) -> tuple:
     return tuple(out)
 
 
-def params_shardings(params, mesh):
+def _leaf_specs(params, mesh, mode: str) -> list:
+    if mode not in ("auto", "replicate"):
+        raise ValueError(f"mode must be 'auto' or 'replicate' (got {mode!r})")
+    return [() if mode == "replicate" else spec_for_path(path, leaf, mesh)
+            for path, leaf in _tree.leaves_with_paths(params)]
+
+
+def params_specs(params, mesh, mode: str = "auto"):
+    """A tree shaped like ``params`` whose leaves are logical specs: the
+    reference's ``params_shardings``, each ``NamedSharding``'s spec as a
+    tuple (read them in ``params``' order with ``_tree.leaf_nodes``).
+    mode="auto": the FSDP + TP rules above. mode="replicate": pure data
+    parallelism, every leaf replicated (``()``), for models whose matrices
+    are too small to pay for model-axis collectives."""
+    return _tree.unflatten(params, _leaf_specs(params, mesh, mode))
+
+
+def params_shardings(params, mesh, mode: str = "auto"):
     """A tree shaped like ``params`` whose leaves are the placement tuples
-    of the FSDP + TP rules above on ``mesh``."""
-    return _tree.unflatten(params, [
-        placements(spec_for_path(path, leaf, mesh), mesh)
-        for path, leaf in _tree.leaves_with_paths(params)])
+    of ``params_specs`` on the ``DeviceMesh`` ``mesh``."""
+    return _tree.unflatten(params, [placements(spec, mesh) for spec in
+                                    _leaf_specs(params, mesh, mode)])
 
 
-def batch_spec(mesh) -> tuple:
-    """Token batches: batch dim over every data-parallel axis present."""
+def batch_spec(mesh, mode: str = "auto") -> tuple:
+    """Token batches: batch dim over every data-parallel axis present; in
+    "replicate" (pure data parallel) mode the model axis carries batch
+    too."""
     sizes = mesh_sizes(mesh)
-    axes = [a for a in ("pod", "data") if a in sizes]
+    names = ("pod", "data", "model") if mode == "replicate" else ("pod",
+                                                                  "data")
+    axes = [a for a in names if a in sizes]
     return (tuple(axes) if len(axes) > 1 else axes[0],) if axes else ()
 
 

@@ -17,10 +17,17 @@ from __future__ import annotations
 from repro_torch.distributed import context
 
 
+def production_mesh_sizes(*, multi_pod: bool = False) -> dict:
+    """``{dimension name: size}`` of a production mesh, in mesh order (what
+    ``launch.specs.build_cell`` and the dry run read; no process group)."""
+    if multi_pod:
+        return {"pod": 2, "data": 16, "model": 16}
+    return {"data": 16, "model": 16}
+
+
 def make_production_mesh(*, multi_pod: bool = False):
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return context.make_mesh(shape, axes)
+    sizes = production_mesh_sizes(multi_pod=multi_pod)
+    return context.make_mesh(tuple(sizes.values()), tuple(sizes))
 
 
 def make_test_mesh(data: int = 2, model: int = 2):

@@ -262,13 +262,30 @@ def attention_decode(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     dev = x.device
     pos = pos.to(dev).long()
     q, k, v = _project_qkv(params, x, cfg, pos[:, None])
-    S_max, KVH = cache_k.shape[1], cache_k.shape[2]
-    H, hd = q.shape[2], q.shape[3]
+    S_max = cache_k.shape[1]
     rows = (torch.arange(B, device=dev) if write is None
             else torch.nonzero(write.to(dev)).flatten())
     at = torch.clamp(pos, 0, S_max - 1)[rows]
     cache_k[rows, at] = k[rows, 0].to(cache_k.dtype)
     cache_v[rows, at] = v[rows, 0].to(cache_v.dtype)
+    out = decode_attention(q, cache_k, cache_v, pos, cfg,
+                           layer_kind=layer_kind, write=write)
+    return (torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype)),
+            cache_k, cache_v)
+
+
+def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
+                     cache_v: torch.Tensor, pos: torch.Tensor,
+                     cfg: ModelConfig, *, layer_kind: str = "attn_mlp",
+                     write: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The dense attention of one decode token (``attention_decode`` after
+    its cache write, before the output projection): q [B, 1, H, hd]
+    against the whole cache [B, S_max, KVH, hd] in f32, positions past the
+    row's last (and, on a local layer, outside its window) masked. Returns
+    [B, 1, H, hd] in q's dtype."""
+    B, dev = q.shape[0], q.device
+    S_max, KVH = cache_k.shape[1], cache_k.shape[2]
+    H, hd = q.shape[2], q.shape[3]
     group = H // KVH
     scale = hd ** -0.5
     # sequence-parallel long-context decode keeps the scores sharded along
@@ -291,9 +308,7 @@ def attention_decode(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     if seq_parallel:
         p = dctx.constrain(p, (None, None, None, "all"))
     out = torch.einsum("bkgs,bskd->bkgd", p, cache_v.float())
-    out = out.reshape(B, 1, H, hd).to(x.dtype)
-    return (torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype)),
-            cache_k, cache_v)
+    return out.reshape(B, 1, H, hd).to(q.dtype)
 
 
 def cross_attention(params: dict, x: torch.Tensor, memory: torch.Tensor,

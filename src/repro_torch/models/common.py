@@ -39,11 +39,16 @@ def dense_init(shape: Sequence[int], dtype, *, generator: torch.Generator,
     slices of at most ``_DRAW_ELEMS`` elements along its flattened leading
     axes, each cast into the result as it is drawn, so no float32 copy of a
     whole stacked leaf exists (dbrx-132b's stacked expert matrices would
-    need 34 GB)."""
+    need 34 GB).
+
+    On the ``meta`` device (``generator`` is then ``seeded_generator``'s
+    stand-in) the leaf has its shape and dtype and nothing is drawn."""
     stddev = scale / max(1.0, math.sqrt(shape[0] if len(shape) > 1
                                         else 1.0))
     full = tuple(shape) if stack is None else (stack, *shape)
     dev = generator.device
+    if dev.type == "meta":
+        return torch.empty(full, dtype=dtype, device=dev)
     if dtype == torch.float32:
         t = torch.empty(full, dtype=torch.float32, device=dev)
         torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0,
@@ -59,6 +64,20 @@ def dense_init(shape: Sequence[int], dtype, *, generator: torch.Generator,
                                     generator=generator)
         rows[r0:r0 + t.shape[0]] = t.mul_(stddev)
     return out
+
+
+class _ShapeOnly:
+    """Stands in for a ``torch.Generator`` on the ``meta`` device, which has
+    none: the initializers read its ``device`` and draw nothing."""
+    device = torch.device("meta")
+
+
+def seeded_generator(seed: int, device: torch.device):
+    """A ``torch.Generator`` on ``device`` seeded with ``seed``; on ``meta``,
+    the stand-in that makes the initializers build shapes only."""
+    if device.type == "meta":
+        return _ShapeOnly()
+    return torch.Generator(device=device).manual_seed(seed)
 
 
 def rms_norm_init(d: int, dtype, *, device, stack=None) -> dict:

@@ -7,11 +7,19 @@ product over the expert dimension, and combines the results with the
 routing weights; pairs past an expert's capacity are dropped (the token
 keeps only its residual stream there). Capacity is per group of tokens, so
 a token's output depends on the batch it is routed with.
+
+``REPRO_MOE_GATHER`` (the reference's experiment knob, unset in baselines)
+pins the expert weights to ``("model", None, None)`` before the expert
+products, so a sharded launcher gathers each layer's weights once and the
+products run shard-local. It is kept for parity with the reference: it can
+act only on DTensor weights under ``data_axes``, and no path of the port
+places a model's weights so, so it is read only there.
 """
 
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 import torch.nn.functional as F
@@ -116,6 +124,9 @@ def moe(params: dict, x: torch.Tensor, cfg: ModelConfig):
                                ("data", "model", None, None))
 
     wi, wg, wo = (params[k].to(x.dtype) for k in ("wi", "wg", "wo"))
+    if dctx.placed(wi) and os.environ.get("REPRO_MOE_GATHER"):
+        wi, wg, wo = (dctx.constrain(w, ("model", None, None))
+                      for w in (wi, wg, wo))
     h = torch.einsum("gecd,edf->gecf", expert_in, wi)
     g = torch.einsum("gecd,edf->gecf", expert_in, wg)
     h = F.silu(g.float()).to(x.dtype) * h

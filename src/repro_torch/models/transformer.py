@@ -95,9 +95,13 @@ def init_lm(cfg: ModelConfig, seed: int = 0, *, device=None) -> dict:
     ``jax.random`` draws (tests carry the reference's parameters over with
     ``models.convert`` instead). The encoder-decoder pattern adds
     ``encoder`` (``n_enc_layers`` stacked attention + MLP blocks),
-    ``enc_norm`` and ``cross`` (one cross-attention per super-block)."""
+    ``enc_norm`` and ``cross`` (one cross-attention per super-block).
+
+    On ``device="meta"`` every leaf has its shape and dtype and nothing is
+    drawn or allocated: the port's ``jax.eval_shape(lambda: init_lm(rng,
+    cfg))``, for ``launch.specs.build_cell``."""
     dev = _device.resolve(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = common.seeded_generator(seed, dev)
     dtype = common.dtype_of(cfg.param_dtype)
     n_sb = cfg.n_superblocks
     d = cfg.d_model

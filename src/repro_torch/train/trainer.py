@@ -11,10 +11,19 @@ dict. ``grad_compression={"axis": ..., "ratio": ...}`` replaces the
 gradients by their Roaring top-k mean over the declared mesh's ``axis``
 dimension (``grad_comp.compressed_crosspod_mean``) before clipping, where
 the reference applies it.
+
+Two of the reference's experiment knobs are read once, when
+``make_train_step`` builds the step (both unset in baselines):
+``REPRO_ACCUM_DTYPE=bf16`` keeps the microbatch gradient sum in bf16 (each
+microstep's addition in f32, then rounded), and
+``REPRO_GRAD_AR_DTYPE=bf16`` rounds the gradients to bf16 before the
+cross-pod mean and the clip (the data-parallel reduction's wire format;
+the optimizer's arithmetic stays f32).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Callable, Optional
 
 import torch
@@ -77,6 +86,10 @@ def make_train_step(cfg: ModelConfig, optimizer: OptimizerDef, *,
         denom = torch.clamp(mask.sum(), min=1.0)
         return (nll * mask).sum() / denom + 0.01 * aux
 
+    acc_dt = (torch.bfloat16 if os.environ.get("REPRO_ACCUM_DTYPE") == "bf16"
+              else torch.float32)
+    grad_ar_bf16 = os.environ.get("REPRO_GRAD_AR_DTYPE") == "bf16"
+
     def grad_fn(flat, params, *inputs):
         loss = loss_fn(params, *inputs)
         return loss.detach(), torch.autograd.grad(
@@ -102,18 +115,23 @@ def make_train_step(cfg: ModelConfig, optimizer: OptimizerDef, *,
                              f"{microbatch}")
         n_micro = B // microbatch
         loss = torch.zeros((), dtype=torch.float32, device=dev)
-        acc = [torch.zeros_like(p, dtype=torch.float32) for p in flat]
+        acc = [torch.zeros_like(p, dtype=acc_dt) for p in flat]
         for i in range(n_micro):
             sl = slice(i * microbatch, (i + 1) * microbatch)
             l, g = grad_fn(flat, params, *(None if x is None else x[sl]
                                            for x in inputs))
             loss = loss + l / n_micro
             for a, gi in zip(acc, g):
-                a.add_(gi.float() / n_micro)
+                if acc_dt == torch.float32:
+                    a.add_(gi.float() / n_micro)
+                else:       # the sum in f32, rounded to the accumulator
+                    a.copy_(a.float() + gi.float() / n_micro)
         return loss, _tree.unflatten(params, acc)
 
     def train_step(state, batch):
         loss, grads = compute_grads(state["params"], batch)
+        if grad_ar_bf16:
+            grads = _tree.tree_map(lambda g: g.to(torch.bfloat16), grads)
         if grad_compression is not None:
             from repro_torch.grad_comp import compressed_crosspod_mean
             grads = compressed_crosspod_mean(

@@ -273,8 +273,10 @@ def _check_specs():
             assert any(s for s in got), arch
     mesh = types.SimpleNamespace(mesh_dim_names=("pod", "data", "model"),
                                  shape=(2, 2, 2))
-    assert TSH.batch_spec(mesh) == tuple(JSH.batch_spec(
-        types.SimpleNamespace(shape={"pod": 2, "data": 2, "model": 2})))
+    for mode in ("auto", "replicate"):
+        assert TSH.batch_spec(mesh, mode) == tuple(JSH.batch_spec(
+            types.SimpleNamespace(shape={"pod": 2, "data": 2, "model": 2}),
+            mode)), mode
     assert TSH.kv_cache_spec(sizes) == tuple(JSH.kv_cache_spec(fake))
     assert TSH.posting_spec(sizes) == tuple(JSH.posting_spec(fake))
     assert TSH.posting_spec(sizes, "pod") == \
@@ -297,6 +299,7 @@ def _train_worker(rank, world, store, want):
                             rank=rank, world_size=world)
     try:
         from torch.distributed.device_mesh import DeviceMesh
+        from torch.distributed.tensor import Replicate
         pod = DeviceMesh("cpu", torch.arange(world), mesh_dim_names=("pod",))
         grads = {"w": [torch.from_numpy(g[rank].copy())
                        for g in want["grads"]]}
@@ -335,6 +338,10 @@ def _train_worker(rank, world, store, want):
             assert torch.equal(b.full_tensor(), a)
             n_sharded += b.to_local().shape != a.shape
         assert n_sharded > 0
+        # the pure data-parallel layout replicates every leaf
+        rep = TSH.params_shardings(params, mesh, "replicate")
+        assert all(pl == (Replicate(), Replicate()) for pl in
+                   _tree.leaf_nodes(params, rep))
     finally:
         dist.destroy_process_group()
 

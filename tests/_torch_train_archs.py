@@ -33,25 +33,54 @@ Against the JAX package on the CPU, inputs made from a seed with numpy:
 * ``remat="dots"`` and ``remat="full"`` against ``"none"`` on the port,
   on three configs (dense, MoE, Mamba hybrid);
 * ``launch.specs``: ``input_specs`` of every architecture and shape,
-  ``pick_optimizer`` of every architecture, and the training microbatch
-  against the reference's ``build_cell`` on a one-device mesh;
+  ``pick_optimizer`` of every architecture, and ``build_cell`` against the
+  reference's on an ``AbstractMesh`` for all 40 cells on the single-pod
+  (16, 16) mesh and the 10 train_4k cells on the multi-pod (2, 16, 16)
+  one (the port's arguments on ``meta``, at full width): every argument
+  leaf's path, shape and dtype, every spec against the reference's
+  ``PartitionSpec``, ``donate_argnums`` and ``meta``, and the bytes a rank
+  holds against the sum of ``NamedSharding.shard_shape`` x itemsize,
+  exactly; each of ``specs.py``'s four ``REPRO_*`` knobs on one cell, set
+  and then restored;
+* one train step of a reduced config under ``REPRO_ACCUM_DTYPE=bf16`` and
+  one under ``REPRO_GRAD_AR_DTYPE=bf16`` (microbatch 1, batch 2), each
+  against the reference's step under the same variable (``REPRO_MOE_GATHER``
+  acts only on DTensor weights, which no path of the port has, so it has
+  no check);
+* ``launch.collectives`` on two cells worked out by hand, and against the
+  reference's compiled HLO (``hlo_analysis.collective_bytes``) on a 2 x 2
+  host mesh in a subprocess, for three reduced gemma2-2b cells: the FSDP
+  gathers exactly, the other terms in the direction of their stated gaps
+  (``_check_collectives_hlo``);
 * ``launch.train.main`` for whisper-base and jamba (reduced, CPU): the
   loss is finite and the reference's ``restore_checkpoint`` reads the
-  port's checkpoint into its own train state's structure.
+  port's checkpoint into its own train state's structure; and the dry
+  run's ``run_cell`` on two cells into a temporary directory.
 
 Tolerances: f32 sums taken in another order: loss and grad norm ``RTOL``,
 parameters and state ``P_ATOL`` / ``RTOL`` (as ``test_torch_train.py``);
 an AdamW parameter entry at its leaf's gradient noise floor is held to the
 update its own moments give, and its first moment to the reference's sign
-(``_check_state``).
+(``_check_state``). Under the two bf16 gradient knobs both packages round
+the gradient to bf16, where an f32 sum taken in another order can round
+the other way, one bf16 step (up to 2^-7 of the entry) apart: the
+optimizer state is held to ``BF16_RTOL`` (2^-6: the second moment squares
+the entry), the loss, grad norm and parameters to the tolerances above.
 """
 
+import contextlib
 import dataclasses
+import json
+import math
+import os
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
+from jax.sharding import AbstractMesh
 
 from repro import sparsity as RS
 from repro.checkpoint import restore_checkpoint as r_restore
@@ -70,6 +99,8 @@ from repro_torch.configs import SHAPES as P_SHAPES
 from repro_torch.configs import get_config as port_config
 from repro_torch.configs import list_archs
 from repro_torch.kernels.sparse_attn.kernel import FLASH_HEAD_DIMS
+from repro_torch.launch import collectives as PC
+from repro_torch.launch import dryrun as PDR
 from repro_torch.launch import specs as PSP
 from repro_torch.launch import train as LT
 from repro_torch.models import mlp as PM
@@ -81,6 +112,7 @@ from repro_torch.optim import adamw as p_adamw
 from repro_torch.optim import adamw8bit as p_adamw8bit
 from repro_torch.optim import cosine_schedule as p_cosine
 from repro_torch.train import make_train_step as p_make_step
+from repro_torch.train import trainer as PTR
 
 SEED = 2000
 RTOL = 2e-4
@@ -94,6 +126,10 @@ START_STEP = 2000           # pick_optimizer's schedule peaks here
 NOISE_FLOOR = 1e-4
 SIGN_FLOOR = 1e-6
 ADAMW = (np.float32(0.9), np.float32(0.95), np.float32(1e-8), np.float32(0.1))
+# adjacent bf16 roundings of a gradient entry differ by up to 2^-7 of it;
+# the second moment squares the entry
+BF16_RTOL = 2.0 ** -6
+KNOB_S = 64
 REMAT_ARCHS = ("starcoder2-15b", "dbrx-132b", "jamba-1.5-large-398b")
 
 
@@ -347,7 +383,7 @@ def _check_remat(pcfg, tree, lists, batch):
             _close(a, b, what)
 
 
-def _check_state(what, pstate, rstate, prev, step):
+def _check_state(what, pstate, rstate, prev, step, state_rtol=RTOL):
     """Every parameter and optimizer-state leaf within ``P_ATOL`` /
     ``RTOL`` after the step from ``START_STEP + step``; ``prev`` holds the
     port's parameters before it. AdamW divides each entry's first moment by
@@ -392,7 +428,8 @@ def _check_state(what, pstate, rstate, prev, step):
         assert not bad.any(), (f"{what} param: {int(bad.sum())} entries, "
                                f"max abs err {np.abs(got - want).max()}")
     for got, want in zip(_tree.leaves(pstate["opt"]), jax.tree.leaves(opt)):
-        _close(_np(got), np.asarray(want, np.float32), what + " state")
+        _close(_np(got), np.asarray(want, np.float32), what + " state",
+               rtol=state_rtol)
 
 
 def check_train_steps():
@@ -403,6 +440,264 @@ def check_train_steps():
 
 
 # ---------------------------------------------------------------- specs
+
+def _keys(path):
+    return tuple(k.key if hasattr(k, "key") else k.idx for k in path)
+
+
+def _check_cell(arch, shape, dims, names):
+    """The port's ``build_cell`` against the reference's on an abstract
+    mesh of ``dims`` (no devices)."""
+    rmesh, pmesh = AbstractMesh(dims, names), dict(zip(names, dims))
+    _, rargs, rsh, rdonate, rmeta = RSP.build_cell(arch, shape, rmesh)
+    _, pargs, psh, pdonate, pmeta = PSP.build_cell(arch, shape, pmesh)
+    what = (arch, shape, dims)
+    assert pdonate == rdonate and pmeta == rmeta, (what, pmeta, rmeta)
+    rleaves = jax.tree_util.tree_flatten_with_path(rargs)[0]
+    rspecs = jax.tree.leaves(rsh)
+    pleaves = _tree.leaves_with_paths(pargs)
+    pspecs = _tree.leaf_nodes(pargs, psh)
+    assert len(pleaves) == len(rleaves) == len(rspecs) == len(pspecs), what
+    want = 0
+    for (rp, r), rs, (pp, p), ps in zip(rleaves, rspecs, pleaves, pspecs):
+        assert pp == _keys(rp), (what, pp, _keys(rp))
+        assert p.device.type == "meta", (what, pp)
+        assert tuple(p.shape) == r.shape, (what, pp, p.shape, r.shape)
+        assert str(p.dtype).removeprefix("torch.") == str(r.dtype), (what, pp)
+        assert ps == tuple(rs.spec), (what, pp, ps, rs.spec)
+        want += math.prod(rs.shard_shape(r.shape)) * r.dtype.itemsize
+    assert PSP.rank_bytes(pargs, psh, pmesh) == want, what
+    return pargs, psh, pmeta
+
+
+@contextlib.contextmanager
+def _env(**values):
+    """Set environment variables for the block, then restore them."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _check_spec_knobs():
+    single = ((16, 16), ("data", "model"))
+    with _env(REPRO_SHARDING_MODE="replicate"):
+        _, psh, _ = _check_cell("whisper-base", "train_4k", *single)
+        assert psh[1]["tokens"][0] == ("data", "model")
+    with _env(REPRO_LONG_WINDOW="8192"):
+        args, _, meta = _check_cell("gemma2-2b", "long_500k", *single)
+        assert meta["long_window"] == 8192 and args[1][0]["k"].shape[2] == 8192
+    with _env(REPRO_PARAM_DTYPE="bfloat16"):
+        args, _, _ = _check_cell("stablelm-1.6b", "prefill_32k", *single)
+        assert args[0]["embed"]["table"].dtype == torch.bfloat16
+    for micro, want in (("32", 32), ("0", None)):
+        with _env(REPRO_MICROBATCH=micro):
+            assert _check_cell("gemma2-2b", "train_4k", *single)[2][
+                "microbatch"] == want
+    for knob in ("REPRO_SHARDING_MODE", "REPRO_LONG_WINDOW",
+                 "REPRO_PARAM_DTYPE", "REPRO_MICROBATCH"):
+        assert knob not in os.environ, knob
+
+
+def _check_knob_step(i, env, arch="gemma2-2b", micro=1):
+    """One step of a reduced config (f32 compute, dense attention, batch
+    ``B`` in microbatches of ``micro``) through both packages under the
+    environment ``env`` (a bf16 gradient knob). The port's gradients
+    reach the clip as bf16 leaves, where the reference rounds them."""
+    rcfg, pcfg = (dataclasses.replace(get(arch, reduced=True),
+                                      compute_dtype="float32")
+                  for get in (ref_config, port_config))
+    rng = np.random.default_rng(SEED + 10 + i)
+    batch = {"tokens": rng.integers(1, rcfg.vocab, (B, KNOB_S + 1)).astype(
+        np.int32), "mask": (rng.random((B, KNOB_S + 1)) < 0.9).astype(
+            np.float32)}
+    tree = _params(arch, i, pcfg)
+    ropt = RSP.pick_optimizer(ref_config(arch))
+    popt = PSP.pick_optimizer(port_config(arch))
+    rparams = jax.tree.map(jnp.asarray, tree)
+    rstate = RState(rparams, ropt.init(rparams), START_STEP)
+    pstate = state_from_numpy(_to_np(rstate), pcfg, device="cpu")
+    prev = [_np(x).copy() for x in _tree.leaves(pstate["params"])]
+    clip, seen = PTR.clip_by_global_norm, set()
+
+    def spy(grads, max_norm):
+        seen.update(g.dtype for g in _tree.leaves(grads))
+        return clip(grads, max_norm)
+    with _env(**env):
+        rstate, rm = jax.jit(r_make_step(rcfg, ropt, microbatch=micro))(
+            rstate, jax.tree.map(jnp.asarray, batch))
+        step = p_make_step(pcfg, popt, microbatch=micro)
+    PTR.clip_by_global_norm = spy
+    try:                # the knobs were read when the step was built
+        pstate, pm = step(pstate, batch)
+    finally:
+        PTR.clip_by_global_norm = clip
+    what = f"{arch} under {env}"
+    assert seen == {torch.bfloat16}, (what, seen)
+    _close(float(pm["loss"]), float(rm["loss"]), what + " loss", atol=0)
+    _close(float(pm["grad_norm"]), float(rm["grad_norm"]),
+           what + " grad norm", atol=0)
+    _check_state(what, pstate, rstate, prev, 0, state_rtol=BF16_RTOL)
+
+
+def _check_collectives():
+    """Two cells worked out by hand (mesh sizes as named; f32 leaves, bf16
+    activations; the reduced gemma2-2b config: 4 heads of 16).
+
+    Decode, data 2 x model 2, batch 4: ``mlp/wo`` [2 layers, 8, 4] on
+    (None, "model", "data"), the embedding [16, 4] on ("model",), a KV
+    cache [2, 4, 64, 1, 16] with its sequence on ("data", "model").
+    all-gather (data): wo without its data sharding, 2 x 4 x 4 x 4 B =
+    128 B, once. all-reduce: wo's output, 2 rows a rank x 4 x 2 B = 16 B
+    a layer, 2 layers = 32 B (model); the lookup, 2 x 4 x 4 B = 32 B
+    (model); the partial softmax, 4 x 4 x (16 + 2) x 4 B = 1,152 B a
+    layer, 2,304 B (data+model). all-reduce 2,368 B in 2 + 1 + 2 = 5.
+
+    Train, pod 2 x data 2 x model 2, batch 8 in microbatches of 2 (4
+    microsteps, 1 row a rank), 3 positions: tok = 3. all-gather: 128 B x
+    2 passes x 4 = 1,024 B in 8 (data). reduce-scatter: wo's shard 2 x 4
+    x 2 x 4 B = 64 B x 4 = 256 B in 4 (data); its pod all-reduce the same,
+    256 B in 4 (pod). all-reduce (model): wo's output 3 x 4 x 2 B = 24 B x
+    3 passes x 4 x 2 layers = 576 B in 24; the lookup 3 x 4 x 4 B = 48 B
+    x 4 = 192 B in 4; the loss 3 x 4 B x 3 x 4 = 144 B in 12; the
+    unembedding's input gradient 48 B x 4 = 192 B in 4. The embedding's
+    gradient is all-reduced over pod and data: 8 x 4 x 4 B = 128 B x 4 =
+    512 B in 4. all-reduce 1,872 B in 52.
+    """
+    cfg = port_config("gemma2-2b", reduced=True)
+    wo = torch.empty((2, 8, 4), device="meta")
+    table = torch.empty((16, 4), device="meta")
+    params = {"blocks": [{"mlp": {"wo": wo}}], "embed": {"table": table}}
+    pspecs = {"blocks": [{"mlp": {"wo": (None, "model", "data")}}],
+              "embed": {"table": ("model",)}}
+    k = torch.empty((2, 4, 64, 1, 16), dtype=torch.bfloat16, device="meta")
+    got = PC.cell_collectives(
+        cfg, "decode", (params, [{"k": k, "v": k}], {}),
+        (pspecs, [{"k": (None, None, ("data", "model"), None, None),
+                   "v": ()}], {}), {"data": 2, "model": 2},
+        seq_len=64, global_batch=4)
+    assert got["source"] == "placements"
+    assert got["per_kind"] == {"all-gather": 128, "all-reduce": 2368}, got
+    assert got["counts"] == {"all-gather": 1, "all-reduce": 5}, got
+    assert got["per_axes"] == {"data": 128, "model": 64,
+                               "data+model": 2304}, got
+    got = PC.cell_collectives(
+        cfg, "train", ({"params": params}, {}), ({"params": pspecs}, {}),
+        {"pod": 2, "data": 2, "model": 2}, seq_len=3, global_batch=8,
+        microbatch=2)
+    assert got["per_kind"] == {"all-gather": 1024, "reduce-scatter": 256,
+                               "all-reduce": 1872}, got
+    assert got["counts"] == {"all-gather": 8, "reduce-scatter": 4,
+                             "all-reduce": 52}, got
+    assert got["per_axes"] == {"data": 1280, "pod": 256, "model": 1104,
+                               "pod+data": 512}, got
+    assert got["trip_counts"] == {"microsteps": 4, "superblocks": 2}, got
+
+
+HLO_ARCH = "gemma2-2b"
+HLO_MESH = (2, 2)
+# (seq_len, global_batch, kind): small enough to compile in seconds
+HLO_SHAPES = {"train_s": (64, 8, "train"), "prefill_s": (64, 4, "prefill"),
+              "decode_s": (64, 8, "decode")}
+HLO_OK = "HLO-COLLECTIVES "
+
+
+def _hlo_child():
+    """The subprocess of ``_check_collectives_hlo`` (four host devices set
+    in ``XLA_FLAGS``): each ``HLO_SHAPES`` cell of the reduced ``HLO_ARCH``
+    built by both packages' ``build_cell``, the reference's compiled on a
+    ``HLO_MESH`` mesh and read by ``collective_bytes`` with the dry run's
+    trip counts, the port's counted by ``cell_collectives``. Prints one
+    JSON line after ``HLO_OK``."""
+    from jax.sharding import AxisType
+    from repro.configs import ShapeSpec as RShape
+    from repro.distributed.context import data_axes
+    from repro.launch.hlo_analysis import collective_bytes
+    from repro_torch.configs import ShapeSpec as PShape
+    RSP.SHAPES = {k: RShape(k, *v) for k, v in HLO_SHAPES.items()}
+    PSP.SHAPES = {k: PShape(k, *v) for k, v in HLO_SHAPES.items()}
+    RSP.get_config = lambda a: ref_config(a, reduced=True)
+    PSP.get_config = lambda a: port_config(a, reduced=True)
+    names = ("data", "model")
+    mesh = jax.make_mesh(HLO_MESH, names, axis_types=(AxisType.Auto,) * 2)
+    sizes = dict(zip(names, HLO_MESH))
+    cfg = port_config(HLO_ARCH, reduced=True)
+    out = {}
+    for shape, (S, batch, kind) in HLO_SHAPES.items():
+        fn, args, shs, donate, meta = RSP.build_cell(HLO_ARCH, shape, mesh)
+        with mesh, data_axes(["data"], sizes["data"]):
+            hlo = jax.jit(fn, in_shardings=shs, donate_argnums=donate).lower(
+                *args).compile().as_text()
+        micro = meta.get("microbatch")
+        inner = max(S // 512, 1)
+        trips = (([batch // micro] if micro else [])
+                 + [cfg.n_superblocks, inner, inner])
+        per_kind, _, counts = collective_bytes(hlo, trips)
+        _, pargs, psh, _, pmeta = PSP.build_cell(HLO_ARCH, shape, sizes)
+        got = PC.cell_collectives(cfg, kind, pargs, psh, sizes, seq_len=S,
+                                  global_batch=batch,
+                                  microbatch=pmeta.get("microbatch"))
+        out[shape] = {"ref": per_kind, "ref_counts": counts,
+                      "port": got["per_kind"], "port_counts": got["counts"]}
+    print(HLO_OK + json.dumps(out), flush=True)
+
+
+def _check_collectives_hlo():
+    """``cell_collectives`` against the reference's compiled HLO for the
+    ``HLO_SHAPES`` cells of the reduced gemma2-2b (bf16 compute, f32
+    leaves) on a data 2 x model 2 host mesh. XLA needs its device count
+    before it starts, so the reference compiles in a subprocess.
+
+    What holds exactly: the FSDP all-gathers of training and prefill
+    (589,824 B in 28 and 294,912 B in 14). The gaps, as this version of
+    XLA's CPU backend compiles the cells:
+
+    * decode: the model gathers every data-sharded weight (294,912 B);
+      XLA gathers 208,896 B, moving the small decode activations into the
+      row-parallel products instead of gathering their weights, and adds
+      all-to-alls to reshard them. The model counts more;
+    * all-reduce: XLA's CPU backend computes bf16 products in f32 and
+      reduces the f32 result (prefill 294,912 B against the model's
+      163,840, exactly the f32 width of the same reductions); in training
+      it also reduces the input gradients of q, k, v and of the two MLP
+      inputs one by one and reduces whole gradients where the model has
+      a reduce-scatter (2,790,780 B against 988,416 + 147,456). The model
+      counts less.
+
+    So the check holds the gathers to equality and the other terms to the
+    direction of their gap."""
+    env = dict(os.environ)
+    env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "") + " --xla_force_host_"
+                        f"platform_device_count={math.prod(HLO_MESH)}")
+    env["JAX_PLATFORMS"] = "cpu"
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.join(os.path.dirname(__file__), "..", "src"),
+         env.get("PYTHONPATH", "")])
+    proc = subprocess.run([sys.executable, __file__, "--hlo-child"],
+                          capture_output=True, text=True, timeout=300,
+                          env=env)
+    line = [ln for ln in proc.stdout.splitlines() if ln.startswith(HLO_OK)]
+    assert proc.returncode == 0 and line, proc.stdout + proc.stderr
+    cells = json.loads(line[0][len(HLO_OK):])
+    rest = ("reduce-scatter", "all-reduce", "all-to-all",
+            "collective-permute")
+    for shape, c in cells.items():
+        ref, port = c["ref"], c["port"]
+        if shape == "decode_s":
+            assert 0 < ref["all-gather"] < port["all-gather"], (shape, c)
+        else:
+            assert ref["all-gather"] == port["all-gather"], (shape, c)
+            assert c["ref_counts"]["all-gather"] == \
+                c["port_counts"]["all-gather"], (shape, c)
+        assert sum(port.get(k, 0) for k in rest) < sum(
+            ref.get(k, 0) for k in rest), (shape, c)
+
 
 def check_specs():
     rmesh = jax.make_mesh((1, 1), ("data", "model"))
@@ -424,6 +719,8 @@ def check_specs():
                 meta = RSP.build_cell(arch, shape, rmesh)[-1]
                 assert PSP.train_microbatch(
                     pcfg, spec.global_batch, 1) == meta["microbatch"], arch
+            _check_cell(arch, shape, (16, 16), ("data", "model"))
+        _check_cell(arch, "train_4k", (2, 16, 16), ("pod", "data", "model"))
     for name in ("GIANT_PARAM_THRESHOLD", "ENC_FRAMES", "VIS_TOKENS"):
         assert getattr(PSP, name) == getattr(RSP, name), name
     # more data shards than the one-device mesh: the rule, by its numbers
@@ -433,6 +730,12 @@ def check_specs():
                                 ("gemma2-2b", 16, None)):
         assert PSP.train_microbatch(port_config(arch), 256,
                                     dshards) == want, arch
+    _check_spec_knobs()
+    for i, env in enumerate(({"REPRO_ACCUM_DTYPE": "bf16"},
+                             {"REPRO_GRAD_AR_DTYPE": "bf16"})):
+        _check_knob_step(i, env)
+    _check_collectives()
+    _check_collectives_hlo()
 
 
 def check_optimizers_and_train_steps():
@@ -461,7 +764,36 @@ def check_launcher_archs(tmp_path):
         for got, want in zip(jax.tree.leaves(tree),
                              _tree.leaves(out["state"])):
             assert np.array_equal(np.asarray(got), _np(want)), arch
+    _check_dryrun(tmp_path / "dryrun")
     jax.clear_caches()
+
+
+def _check_dryrun(out):
+    """``run_cell`` on two cells: the record's keys and H100 figures, its
+    bytes against ``build_cell``'s, and a second call reading it back."""
+    for arch, shape, multi in (("whisper-base", "decode_32k", False),
+                               ("dbrx-132b", "train_4k", True)):
+        rec = PDR.run_cell(arch, shape, multi, str(out))
+        assert rec["ok"], rec.get("error")
+        mesh = {"pod": 2, "data": 16, "model": 16} if multi else {
+            "data": 16, "model": 16}
+        assert rec["mesh"] == mesh and rec["chips"] == math.prod(
+            mesh.values())
+        _, args, specs, _, _ = PSP.build_cell(arch, shape, mesh)
+        assert rec["arg_bytes"]["total"] == PSP.rank_bytes(args, specs,
+                                                           mesh)
+        assert rec["memory_analysis"]["argument_size_in_bytes"] == \
+            rec["arg_bytes"]["total"]
+        assert rec["memory_analysis"]["temp_size_in_bytes"] is None
+        assert rec["collectives"]["source"] == "placements"
+        assert rec["roofline"]["hardware"]["peak_flops"] == 989.4e12
+        assert rec["roofline"]["dominant"] in ("compute_s", "memory_s",
+                                               "collective_s")
+        for key in ("cell", "arch", "shape", "kind", "seq_len",
+                    "global_batch", "n_superblocks", "params",
+                    "active_params", "lower_s", "analytic"):
+            assert key in rec, key
+        assert PDR.run_cell(arch, shape, multi, str(out)) == rec
 
 
 # ---------------------------------------------------------------- by name
@@ -472,3 +804,7 @@ def test_optimizers_and_train_steps():
 
 def test_launcher_archs(tmp_path):
     check_launcher_archs(tmp_path)
+
+
+if __name__ == "__main__" and "--hlo-child" in sys.argv:
+    _hlo_child()
