@@ -138,9 +138,16 @@ LONG_PROMPT = 4201
 GAP_TOL = 1e-2
 LOGIT_ULP = 2.0 ** -7
 # paged decode against its plain version: bf16 outputs, one rounding apart
-# (one ulp is 2**-7 below magnitude 2)
+# (one ulp is 2**-7 below magnitude 2) on the check grid's short rows; the
+# long-split case, decode_32k and the serving launches hold each bf16
+# output vector (a sequence's query head) within LONG_PAGED_ULPS ulps of
+# its own largest element instead (``paged_error``)
 BF16_ATOL = 1e-2
 F32_ATOL = 1e-5
+# paged decode timings start after this many untimed calls: the first
+# timed calls on a freshly made decode_32k input have read slow (qwen2-vl's
+# heads, made after stablelm-3b's input), the same calls later not
+WARM_CALLS = 20
 
 # the dry run (launch/dryrun.py: 10 architectures x 4 shapes x 2 meshes) and
 # build_cell's long_500k decode cell realized on the card at full width and
@@ -1493,22 +1500,26 @@ def check_paged_decode(torch, pd_cases, SK, SR, seed):
     """The paged decode kernel against its plain version over
     ``cases.CHECK_GRID`` (G 1 / 2, D 64 / 256, pages of 8 / 16, softcap on
     and off; then every other (G, D) of the registry: 5 / 6 / 8 / 12 with
-    D 128, 1 with D 80), in bf16 and f32, on two cases each: rows with ``starts > 0``,
+    D 128, 1 with D 80; then 16 / 128 and 3 / 64 for the tensor-core
+    kernel's padding of G to 16, the latter over 3 KV heads), in bf16 and
+    f32, on two cases each: rows with ``starts > 0``,
     an empty row (``counts = 0``, which must give zeros) and NaN in every
     page after a row's ``counts``; and rows across the kernel's split
     blocks (a window starting past the first split, a length ending one
     position into a split, ``counts = 0`` and ``starts >= lengths``, the
-    last two zeros)."""
+    last two zeros). Then ``cases.RING_GRID`` on the long-split layout
+    (``ring_check``)."""
     rng = np.random.default_rng(seed)
     worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    for G, D, page, softcap in pd_cases.CHECK_GRID:
+    for G, D, page, softcap, KVH in pd_cases.CHECK_GRID:
         for make in (pd_cases.paged_decode_case,
                      pd_cases.paged_decode_split_case):
-            c = make(rng, G, D, page)
-            if make is pd_cases.paged_decode_split_case and SK.decode_split(
-                    *c["q"].shape[:2], c["page_idx"].shape[1] * page,
-                    n_sm, G) != pd_cases.DECODE_SPLIT:
+            c = make(rng, G, D, page, KVH=KVH)
+            if make is pd_cases.paged_decode_split_case and any(
+                    SK.decode_split(SK.decode_rows(*c["q"].shape, dt),
+                                    c["page_idx"].shape[1] * page, n_sm)
+                    != pd_cases.DECODE_SPLIT for dt in worst):
                 raise AssertionError("the split case no longer crosses the "
                                      "kernel's splits")
             t = {k: torch.from_numpy(v).cuda() for k, v in c.items()}
@@ -1537,7 +1548,67 @@ def check_paged_decode(torch, pd_cases, SK, SR, seed):
         "counts never read")
     if worst[torch.bfloat16] > BF16_ATOL or worst[torch.float32] > F32_ATOL:
         raise AssertionError("paged_decode disagrees with its plain version")
+    ring_check(torch, pd_cases, SK, SR, rng, n_sm)
     return worst[torch.bfloat16]
+
+
+def ring_check(torch, pd_cases, SK, SR, rng, n_sm):
+    """The paged decode kernel against its plain version on
+    ``cases.paged_decode_ring_case`` over ``cases.RING_GRID``, in bf16 and
+    f32: splits of ``RING_SPLIT`` positions, so each warp refills its ring
+    of copies many times. Rows of 531-2,624 live positions give outputs
+    near 0.02-0.1, so bf16 is held by ``paged_error`` (LONG_PAGED_ULPS
+    ulps of each output vector's largest element; a flat BF16_ATOL would
+    pass a kernel that read a stale tile), f32 within F32_ATOL. The plain
+    version gets each row's page list cut after the longest row's
+    ``counts``: the same function (no position past ``counts`` is live),
+    without gathering the half a million dead positions that the kernel's
+    page lists hold."""
+    dtypes = (torch.bfloat16, torch.float32)
+    worst = {dt: (0.0, 0.0, "") for dt in dtypes}    # (err, share, case)
+    for G, D, page, softcap, KVH in pd_cases.RING_GRID:
+        # enough positions that both dtypes' paths take the longest split
+        max_pages = pd_cases.ring_max_pages(
+            min(SK.decode_rows(4, KVH, G, D, dt) for dt in dtypes),
+            SK.DECODE_BLOCKS_PER_SM * n_sm, page)
+        c = pd_cases.paged_decode_ring_case(rng, G, D, page, KVH=KVH,
+                                            max_pages=max_pages)
+        if any(SK.decode_split(SK.decode_rows(*c["q"].shape, dt),
+                               max_pages * page, n_sm)
+               != pd_cases.RING_SPLIT for dt in dtypes):
+            raise AssertionError("the long-split case no longer takes the "
+                                 "kernel's longest split")
+        cut = int(c["counts"].max())
+        t = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
+             for k, v in c.items()}
+        args = tuple(t[k] for k in ("page_idx", "counts", "lengths",
+                                    "starts"))
+        short = (t["page_idx"][:, :cut].contiguous(),) + args[1:]
+        for dtype in dtypes:
+            q, kp, vp = (t[k].to(dtype) for k in ("q", "k_pages", "v_pages"))
+            got = SK.paged_decode_cuda(q, kp, vp, *args, softcap=softcap)
+            want = SR.paged_decode_ref(q, kp, vp, *short, softcap=softcap)
+            torch.cuda.synchronize()
+            if got.dtype != dtype or not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"paged_decode ring case G={G} D={D} "
+                                     f"{dtype}: non-finite output")
+            err, share = paged_error(torch, got, want)
+            name = f"G={G} D={D} page={page} KVH={KVH}"
+            if share >= worst[dtype][1]:
+                worst[dtype] = (err, share, name)
+            if share > 1:
+                raise AssertionError(
+                    f"paged_decode disagrees with its plain version on the "
+                    f"long-split case {name} {dtype}: max abs err {err:.4g}, "
+                    f"{share:.3g} of its tolerance")
+    log(f"check paged_decode, long splits: {len(pd_cases.RING_GRID)} cases "
+        f"x (bf16, f32), {pd_cases.RING_SPLIT} positions a split, rows of "
+        "531-2,624 live positions; max abs err and the largest share of "
+        "its tolerance (bf16: "
+        f"{LONG_PAGED_ULPS} ulps of each output vector's largest element; "
+        f"f32: {F32_ATOL}): "
+        + "; ".join(f"{dt}: {e:.3g}, {r:.3g} ({name})"
+                    for dt, (e, r, name) in worst.items()))
 
 
 def serve_path(torch, T, SV, LS, SK, cfg, seed, device="cuda"):
@@ -1822,6 +1893,27 @@ def paged_decode_bound(q, page_idx, counts, kv_len, starts, page_size):
             int(live.sum()))
 
 
+def paged_error(torch, got, want):
+    """(max abs err, largest share of its tolerance) of a paged decode
+    output [..., D] against its plain version. bf16: each output vector
+    within LONG_PAGED_ULPS bf16 ulps of its own largest element (both
+    sides round an f32 result to bf16, so they may differ by one ulp of
+    an element; a softmax over 32,768 random rows gives outputs near 0.01,
+    where a flat BF16_ATOL would hold nothing), and a vector of zeros
+    exactly. f32: within F32_ATOL."""
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    if want.dtype != torch.bfloat16:
+        return err, err / F32_ATOL
+    top = want.float().abs().amax(-1, keepdim=True)
+    ulp = torch.exp2(torch.floor(torch.log2(top.clamp(min=2.0 ** -126)))
+                     - 7)
+    tol = torch.where(top > 0, LONG_PAGED_ULPS * ulp, 0.0)
+    # 0 / 0 where both are zero; any difference from zeros is infinite
+    share = (diff / tol).nan_to_num(nan=0.0, posinf=math.inf)
+    return err, share.max().item()
+
+
 def measure_paged_decode(torch, SK, SR, q, kp, vp, page_idx, counts, kv_len,
                          starts, softcap, iters, flush):
     """Kernel, plain version and the library yardstick on one input: the
@@ -1838,12 +1930,16 @@ def measure_paged_decode(torch, SK, SR, q, kp, vp, page_idx, counts, kv_len,
     args = (q, kp, vp, t["page_idx"], t["counts"], t["kv_len"], t["starts"])
     got = SK.paged_decode_cuda(*args, softcap=softcap)
     want = SR.paged_decode_ref(*args, softcap=softcap)
-    err = (got.float() - want.float()).abs().max().item()
-    if err > BF16_ATOL:
+    err, share = paged_error(torch, got, want)
+    if share > 1:
         raise AssertionError(f"paged_decode disagrees with its plain version "
-                             f"(max abs err {err:.4g})")
+                             f"(max abs err {err:.4g}, {share:.3g} of its "
+                             "tolerance)")
     del got, want
     call = lambda: SK.paged_decode_cuda(*args, softcap=softcap)  # noqa
+    for _ in range(WARM_CALLS):
+        call()
+    torch.cuda.synchronize()
     ms = time_cold_ms(torch, call, iters, flush)
     old = enqueue_time_cold_ms(torch, call, iters, flush)
     pms = enqueue_time_cold_ms(torch, lambda: SR.paged_decode_ref(
@@ -1864,7 +1960,7 @@ def measure_paged_decode(torch, SK, SR, q, kp, vp, page_idx, counts, kv_len,
     del k_seq, v_seq
     bound, n_live = paged_decode_bound(q, page_idx, counts, kv_len, starts,
                                        ps)
-    return err, ms, old, pms, lib, bound, n_live
+    return err, share, ms, old, pms, lib, bound, n_live
 
 
 def paged_decode_rows(torch, SK, SR, cfg, eng, largest, launches, seed,
@@ -1875,42 +1971,58 @@ def paged_decode_rows(torch, SK, SR, cfg, eng, largest, launches, seed,
     shape for one layer with the batch cut from 128 to 32; with the split
     length each took and the split kernel's registers (``regs``, from
     ``build.ptxas_report``)."""
-    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-
-    def splits(B, KVH, positions):
-        n = SK.decode_split(B, KVH, positions, n_sm)
-        return (f"{n} positions a split, {B * KVH * -(-positions // n)} "
-                "split blocks")
     gen = torch.Generator(device="cuda").manual_seed(seed)
     flush = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device="cuda")
     B, KVH, hd = eng.max_batch, cfg.n_kv_heads, cfg.hd
     G = cfg.n_heads // KVH
-    dt = eng.pools[0]["k"].dtype
-    page_idx, counts, lengths, _ = largest
-    kv_len = np.maximum(lengths - 1, 0) + 1
-    starts = np.zeros_like(kv_len)
     j = cfg.block_kinds().index("attn_mlp")              # a global layer
-    q = torch.randn((B, KVH, G, hd), generator=gen, device="cuda").to(dt)
-    err, ms, old, pms, lib, bound, n_live = measure_paged_decode(
-        torch, SK, SR, q, eng.pools[j]["k"][0], eng.pools[j]["v"][0],
-        page_idx, counts, kv_len, starts, cfg.attn_softcap, 50, flush)
+    dt = eng.pools[j]["k"].dtype
+    (err, share, ms, old, pms, lib, bound, n_live), kv_len, splits = \
+        largest_launch(torch, SK, SR, cfg, eng, largest, j, gen, flush)
     kg = 1 << (G - 1).bit_length()       # the kernel's head-count class
-    log(f"paged_decode split kernel (bf16, G = {G}, D = {hd}): "
+    log(f"paged_decode CUDA-core split kernel (bf16, G = {G}, D = {hd}): "
         f"{kernel_regs(regs, f'split_kernelI13__nv_bfloat16Li{kg}ELi1E')}; "
-        f"combine: {kernel_regs(regs, 'combine_kernelI13__nv_bfloat16E')}")
+        f"combine: {kernel_regs(regs, 'combine_kernelI13__nv_bfloat16E')}; "
+        "tensor-core split kernel (bf16) at D = "
+        + "; ".join(f"{d}: {kernel_regs(regs, f'mma_split_kernelILi{d}E')}"
+                    for d in SK.DECODE_MMA_HEAD_DIMS))
     row = _row("paged_decode", launches, err, ms, pms, bound,
                f"the serve path's largest launch: B = {B}, KVH = {KVH}, G = "
                f"{G}, D = {hd}, page {eng.page_size}, lengths "
                f"{kv_len.tolist()} ({n_live} live positions), bf16, softcap "
                f"{cfg.attn_softcap}, "
-               f"{splits(B, KVH, page_idx.shape[1] * eng.page_size)}; "
-               "cold L2",
+               f"{splits}; "
+               f"cold L2; max abs err {err:.3g}, {share:.3g} of its "
+               "tolerance",
                (lib, "scaled_dot_product_attention (gather excluded, no "
                 "softcap)"), old_ms=old)
 
     decode_32k(torch, SK, SR, gen, flush, "one global layer", KVH, G, hd,
                dt, cfg.attn_softcap)
     return row
+
+
+def largest_launch(torch, SK, SR, cfg, eng, largest, j, gen, flush):
+    """``measure_paged_decode`` at a serve path's largest launch (its host
+    page lists ``largest``) against the engine's pools of block kind ``j``
+    (the first super-block's), q drawn from ``gen``; with the launch's
+    lengths and its split."""
+    B, KVH, hd = eng.max_batch, cfg.n_kv_heads, cfg.hd
+    G = cfg.n_heads // KVH
+    dt = eng.pools[j]["k"].dtype
+    page_idx, counts, lengths, _ = largest
+    kv_len = np.maximum(lengths - 1, 0) + 1
+    q = torch.randn((B, KVH, G, hd), generator=gen, device="cuda").to(dt)
+    out = measure_paged_decode(
+        torch, SK, SR, q, eng.pools[j]["k"][0], eng.pools[j]["v"][0],
+        page_idx, counts, kv_len, np.zeros_like(kv_len), cfg.attn_softcap,
+        50, flush)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = SK.decode_rows(B, KVH, G, hd, dt)
+    positions = page_idx.shape[1] * eng.page_size
+    n = SK.decode_split(rows, positions, n_sm)
+    return out, kv_len, (f"{n} positions a split, "
+                         f"{rows * -(-positions // n)} split blocks")
 
 
 def decode_32k(torch, SK, SR, gen, flush, what, KVH, G, D, dt, softcap,
@@ -1929,22 +2041,26 @@ def decode_32k(torch, SK, SR, gen, flush, what, KVH, G, D, dt, softcap,
                           dtype=dt) for _ in range(2))
     q = torch.randn((Bc, KVH, G, D), generator=gen, device="cuda").to(dt)
     full = np.full((Bc,), L, np.int32)
-    err, ms, old, pms, lib, bound, n_live = measure_paged_decode(
+    err, share, ms, old, pms, lib, bound, n_live = measure_paged_decode(
         torch, SK, SR, q, kp, vp, pidx, np.full((Bc,), n_pp, np.int32), full,
         np.zeros_like(full), softcap, 10, flush)
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    split = SK.decode_split(Bc, KVH, L, n_sm, G)
-    chunks = -(-G // SK.GROUP_CHUNK)
-    log(f"paged_decode at decode_32k, {what} (KVH {KVH}, G {G} in {chunks} "
-        f"chunk(s) of query heads, D {D}, {dt}), batch cut from 128 to {Bc} "
+    rows = SK.decode_rows(Bc, KVH, G, D, dt)
+    split = SK.decode_split(rows, L, n_sm)
+    mma = dt == torch.bfloat16 and D in SK.DECODE_MMA_HEAD_DIMS
+    log(f"paged_decode at decode_32k, {what} (KVH {KVH}, G {G}, D {D}, {dt}; "
+        f"{'tensor-core' if mma else 'CUDA-core'} kernel), batch cut from "
+        f"128 to {Bc} "
         f"(KV {L} tokens, pools "
         f"{2 * kp.numel() * kp.element_size() / 1e9:.2f} GB): {ms:.4f} ms "
         f"card-opened (host-opened timer {old:.4f} ms; plain {pms:.3f} ms, "
         f"bound {bound[0]:.4f} ms by {bound[1]}, "
         f"{100 * bound[0] / ms:.1f} % of it; scaled_dot_product_attention "
         f"{lib:.4f} ms with the gather excluded and no softcap); max abs "
-        f"err {err:.3g}; {n_live} live positions, {split} positions a "
-        f"split, {Bc * KVH * chunks * -(-L // split)} split blocks "
+        f"err {err:.3g}, {share:.3g} of its tolerance ({LONG_PAGED_ULPS} "
+        f"bf16 ulps of each output vector's largest element); {n_live} "
+        f"live positions, {split} positions a "
+        f"split, {rows * -(-L // split)} split blocks "
         f"({card_line()})")
     return {"KVH": KVH, "G": G, "D": D, "batch": Bc, "kv_len": L, "ms": ms,
             "plain_ms": pms, "bound_ms": bound[0], "bound_by": bound[1],
@@ -1961,8 +2077,8 @@ def paged_decode_registry(torch, SK, SR, seed):
     """The paged decode kernel at ``decode_32k`` (``decode_32k``), bf16, no
     softcap, at every (KVH, G, D) that the paged engine serves in the
     registry other than gemma2-2b's (``paged_decode_rows`` measures it):
-    dbrx-132b's (8, 6, 128), starcoder2-15b's (4, 12, 128, two chunks of 6
-    query heads) and the rest, one entry a shape, named by its archs."""
+    dbrx-132b's (8, 6, 128), starcoder2-15b's (4, 12, 128) and the rest,
+    one entry a shape, named by its archs."""
     from repro_torch.configs import get_config, list_archs
     shapes = {}
     for arch in list_archs():
@@ -2046,7 +2162,7 @@ def _dense_from_pools(torch, pools, page_idx, counts):
     return out
 
 
-def dbrx_path(torch, T, PM, SV, LS, SK, obs, seed, device="cuda",
+def dbrx_path(torch, T, PM, SV, LS, SK, SR, obs, seed, device="cuda",
               cfg=None):
     """dbrx-132b at full width (8 of its 40 layers) behind ``ServeEngine``
     on the paged cache, through the paged decode kernel at G = 6, D = 128.
@@ -2066,8 +2182,10 @@ def dbrx_path(torch, T, PM, SV, LS, SK, obs, seed, device="cuda",
     ``ROUTER_TIE``) and is counted. Both runs give the same tokens; every
     page returns.
     Between the two, ``serve_profile`` profiles a warm window of the timed
-    run's engine. ``device`` / ``cfg`` rehearse it on the CPU at a reduced
-    config (no profile)."""
+    run's engine. After them, the paged decode kernel is timed at the
+    checked run's largest launch (the step with the most live positions)
+    against that engine's own pools. ``device`` / ``cfg`` rehearse it on
+    the CPU at a reduced config (no profile, no timing)."""
     from repro_torch.configs import get_config
     cuda = device == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
@@ -2102,8 +2220,18 @@ def dbrx_path(torch, T, PM, SV, LS, SK, obs, seed, device="cuda",
             wall, _ = LS.serve(eng, reqs)
             return eng, reqs, wall, dict(SK.launch_counts)
         stats = {"steps": 0, "exact": 0, "logit_ties": [], "router_ties": [],
-                 "ratio": 0.0, "noise": 0.0, "tie_gap": 0.0}
+                 "ratio": 0.0, "noise": 0.0, "tie_gap": 0.0,
+                 "largest": [0, None]}
         orig = T.decode_step_paged
+        orig_batch = eng._batch_arrays
+
+        def batch_arrays():
+            out = orig_batch()
+            if int(out[2].sum()) > stats["largest"][0]:
+                stats["largest"] = [int(out[2].sum()),
+                                    tuple(a.copy() for a in out)]
+            return out
+        eng._batch_arrays = batch_arrays
 
         def decode(params_, pools, tok, pos, page_idx, counts, lengths, cfg_,
                    write=None):
@@ -2180,12 +2308,36 @@ def dbrx_path(torch, T, PM, SV, LS, SK, obs, seed, device="cuda",
         f"max |engine top logit - decode_step logit for that token| at "
         f"most {st['ratio']:.3f} of its tolerance; all pages back in the "
         f"pool; {time.perf_counter() - t:.1f} s")
+    launch = None
+    if cuda:
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        flush = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device="cuda")
+        (err, share, ms, old, pms, lib, bound, n_live), kv_len, splits = \
+            largest_launch(torch, SK, SR, cfg, eng2, st["largest"][1], 0,
+                           gen, flush)
+        del flush
+        launch = {"launches": launches["paged_decode"], "ms": ms,
+                  "plain_ms": pms, "bound_ms": bound[0],
+                  "bound_by": bound[1], "library_ms": lib,
+                  "max_abs_err": err, "lengths": kv_len.tolist()}
+        log(f"paged_decode at dbrx-132b's largest serving launch (B "
+            f"{eng2.max_batch}, KVH {cfg.n_kv_heads}, G "
+            f"{cfg.n_heads // cfg.n_kv_heads}, D {cfg.hd}, page "
+            f"{eng2.page_size}, lengths {kv_len.tolist()}, {n_live} live "
+            f"positions, bf16, {splits}; cold L2): {ms:.4f} ms card-opened "
+            f"(host-opened timer {old:.4f} ms; plain {pms:.3f} ms, bound "
+            f"{bound[0]:.4f} ms by {bound[1]}, {100 * bound[0] / ms:.1f} % "
+            f"of it; scaled_dot_product_attention {lib:.4f} ms with the "
+            f"gather excluded); max abs err {err:.3g}, {share:.3g} of its "
+            f"tolerance; launches "
+            f"{launches['paged_decode']} in the timed run ({card_line()})")
     del params, eng, eng2
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
     return {"steps": n_steps, "ms_per_step": 1e3 * wall / n_steps,
-            "launches": launches["paged_decode"], "peak_gb": peak}
+            "launches": launches["paged_decode"], "peak_gb": peak,
+            "serve_launch": launch}
 
 
 def _all_pages_back(eng):
@@ -4094,8 +4246,9 @@ def main(argv=None) -> int:
 
     t = time.perf_counter()
     registry = {"shapes": paged_decode_registry(torch, SK, SR, args.seed)}
-    registry["dbrx_launches"] = dbrx_path(torch, T, PM, SV, LS, SK, obs,
-                                          args.seed)["launches"]
+    dbrx = dbrx_path(torch, T, PM, SV, LS, SK, SR, obs, args.seed)
+    registry["dbrx_launches"] = dbrx["launches"]
+    registry["dbrx_serve_launch"] = dbrx["serve_launch"]
     log(f"dbrx phase: {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     state_paths(torch, T, args.seed)

@@ -17,6 +17,17 @@ boundaries: a window that starts past the first split, a length that ends
 one position into a split, ``counts = 0``, and ``starts >= lengths`` with
 pages listed. The last two have no live position and must give zeros.
 
+Paged decode with long splits (``paged_decode_ring_case``): the page
+lists are wide enough (``max_pages``, from the caller) that the kernel
+takes its longest split, ``RING_SPLIT`` positions, and each row has
+hundreds to thousands of live positions, so every warp of a split block
+walks many more tiles than its ring of copies holds: ring slots are
+refilled, page ids are loaded across the wrap, and the online softmax
+rescales inside a warp. One window starts mid-tile and crosses a split
+boundary, one starts 5 positions before a boundary, one ends mid-tile in
+the first split, one crosses the second boundary. Every entry after
+``counts`` points at a NaN page, half a million dead positions and more.
+
 Block-sparse flash: six q-block rows over six KV blocks of 128 (the
 model's ``sparse_block``). Row 0 lists only block 2, which under the
 causal mask lies wholly in its future, so it has no live score and must
@@ -32,21 +43,36 @@ from __future__ import annotations
 
 import numpy as np
 
-# (G, D, page_size, softcap) of the card's check: one and two query heads
-# per KV head, stablelm's and gemma2's head dims, two page sizes, softcap
-# on and off; then the registry's other (G, D) pairs (llama4 5 / 128, dbrx
-# 6 / 128, qwen2-vl 8 / 128, starcoder2 12 / 128, stablelm-3b 1 / 80: bf16
-# rows of 160 bytes, 10 vectors of 16), each at both page sizes, softcap
-# off at 16 and on at 8
+# (G, D, page_size, softcap, KVH) of the card's check: one and two query
+# heads per KV head, stablelm's and gemma2's head dims, two page sizes,
+# softcap on and off; then the registry's other (G, D) pairs (llama4 5 /
+# 128, dbrx 6 / 128, qwen2-vl 8 / 128, starcoder2 12 / 128, stablelm-3b 1 /
+# 80: bf16 rows of 160 bytes, 10 vectors of 16) and two pairs for the
+# tensor-core kernel's padding of the query heads to an mma's 16 rows (16 /
+# 128: all of them real; 3 / 64: an odd G, over 3 KV heads, so a block of
+# four KV heads has a warp past the last), each at both page sizes,
+# softcap off at 16 and on at 8; 4 KV heads unless a pair says otherwise
 REGISTRY_PAIRS = ((5, 128), (6, 128), (8, 128), (12, 128), (1, 80))
-CHECK_GRID = tuple((G, D, page, softcap) for G in (1, 2) for D in (64, 256)
-                   for page in (8, 16) for softcap in (None, 50.0)) + tuple(
-    (G, D, page, softcap) for G, D in REGISTRY_PAIRS
+PADDING_PAIRS = ((16, 128), (3, 64, 3))
+CHECK_GRID = tuple((G, D, page, softcap, 4) for G in (1, 2)
+                   for D in (64, 256) for page in (8, 16)
+                   for softcap in (None, 50.0)) + tuple(
+    (G, D, page, softcap, kvh[0] if kvh else 4)
+    for G, D, *kvh in REGISTRY_PAIRS + PADDING_PAIRS
     for page, softcap in ((16, None), (8, 50.0)))
 
 
 # positions per split block that paged_decode.cu takes for the split case
 DECODE_SPLIT = 64
+# (G, D, page_size, softcap, KVH) of the long-split check, in bf16 and f32:
+# each head dim of the tensor-core kernel (64 / 80: four KV heads a block,
+# a warp each; 128: four warps a KV head) and gemma2-2b's 256 (the CUDA-core
+# kernel), at registry group sizes
+RING_GRID = ((1, 64, 16, None, 4), (1, 80, 8, 50.0, 4),
+             (12, 128, 16, None, 4), (6, 128, 8, 50.0, 8),
+             (2, 256, 16, 50.0, 4))
+# the split paged_decode.cu takes for the long-split case (its longest)
+RING_SPLIT = 2048
 
 
 def paged_decode_case(rng: np.random.Generator, G: int, D: int, page: int,
@@ -95,6 +121,29 @@ def paged_decode_split_case(rng: np.random.Generator, G: int, D: int,
         rng, G, D, page, KVH=KVH, max_pages=max_pages,
         lengths=[max_pages * page - 3, 3 * n + 1, 0, n + 36],
         starts=[2 * n + 5, 0, 0, 2 * n])
+
+
+def ring_max_pages(rows: int, blocks: int, page: int) -> int:
+    """Page entries a row of the long-split case, so that ``rows`` split
+    blocks a split reach ``blocks`` blocks (``DECODE_BLOCKS_PER_SM`` x the
+    SMs) at ``RING_SPLIT``-position splits, and the case's rows fit."""
+    return max(-(-blocks // rows), 3) * RING_SPLIT // page
+
+
+def paged_decode_ring_case(rng: np.random.Generator, G: int, D: int,
+                           page: int, *, KVH: int = 4,
+                           max_pages: int) -> dict:
+    """``paged_decode_case`` with the rows of the module docstring's
+    long-split layout (B = 4) over ``max_pages`` page entries a row, which
+    must reach past ``2 * RING_SPLIT`` positions."""
+    n = RING_SPLIT
+    if max_pages * page < 2 * n + 1500:
+        raise ValueError(f"{max_pages} pages of {page} do not reach the "
+                         "case's rows")
+    return paged_decode_case(
+        rng, G, D, page, KVH=KVH, max_pages=max_pages,
+        lengths=[n + 613, n + 700, 531, 2 * n + 1500],
+        starts=[37, n - 5, 0, 2 * n - 300])
 
 
 def no_live_position(c: dict) -> np.ndarray:

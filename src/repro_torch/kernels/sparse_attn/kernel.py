@@ -18,19 +18,32 @@ import torch
 from .. import build as _build
 
 __all__ = ["launch_counts", "reset_launch_counts", "paged_decode_cuda",
-           "sparse_flash_attention_cuda", "decode_split", "MAX_GROUP",
-           "GROUP_CHUNK", "MAX_HEAD_DIM", "DECODE_SPLITS", "FLASH_HEAD_DIMS",
+           "sparse_flash_attention_cuda", "decode_split", "decode_rows",
+           "MAX_GROUP", "GROUP_CHUNK", "MAX_HEAD_DIM", "DECODE_MMA_HEAD_DIMS",
+           "DECODE_MMA_HEADS", "DECODE_SPLITS", "FLASH_HEAD_DIMS",
            "FLASH_Q_TILE", "FLASH_KV_TILE"]
 
 MAX_GROUP = 16          # query heads per KV head (kMaxGroup in the source)
-# the most query heads one split block serves (kMaxG in the source); a
-# larger G runs as ceil(G / GROUP_CHUNK) equal chunks of blocks, each
-# reading the KV head's K / V
+# paged_decode.cu picks its split kernel by shape. bf16 at a head dim of
+# DECODE_MMA_HEADS runs the tensor-core kernel (mma_split_kernel): all G <=
+# MAX_GROUP query heads of a KV head are the M of one mma, and a block
+# serves DECODE_MMA_HEADS[D] neighbouring KV heads (kHeads in the source:
+# four at D <= 80, whose 128 / 160-byte rows share 256-byte L2 lines with
+# the next head's; one at 128). f32, and bf16 at other head dims
+# (gemma2-2b's 256), run the CUDA-core kernel (split_kernel).
+DECODE_MMA_HEADS = {64: 4, 80: 4, 128: 1}
+DECODE_MMA_HEAD_DIMS = tuple(DECODE_MMA_HEADS)
+# the most query heads one CUDA-core split block serves (kMaxG in the
+# source); a larger G runs there as ceil(G / GROUP_CHUNK) equal chunks of
+# blocks, each reading the KV head's K / V. The tensor-core kernel has no
+# chunks.
 GROUP_CHUNK = 8
 MAX_HEAD_DIM = 256      # kMaxD in the source
 # paged_decode.cu: the positions one split block may own, largest first, and
-# the blocks per SM the split length is cut down for
-DECODE_SPLITS = (512, 256, 128, 64)
+# the blocks per SM the split length is cut down for. Long splits write and
+# merge fewer partials at decode_32k and long_500k; the blocks-per-SM floor
+# keeps two waves or more of either kernel's blocks on the card.
+DECODE_SPLITS = (2048, 1024, 512, 256, 128, 64)
 DECODE_BLOCKS_PER_SM = 8
 # sparse_flash.cu: the head dims it is built for (80: stablelm-3b), the
 # query rows of one block (block_q is a multiple) and the keys of one
@@ -79,15 +92,23 @@ def _check(t: torch.Tensor, dtype, name: str, device) -> None:
         raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def decode_split(B: int, KVH: int, positions: int, n_sm: int,
-                 G: int = 1) -> int:
+def decode_rows(B: int, KVH: int, G: int, D: int,
+                dtype: torch.dtype) -> int:
+    """Split blocks of ``paged_decode_cuda`` per split: on the tensor-core
+    kernel (bf16, D in ``DECODE_MMA_HEAD_DIMS``) one a group of
+    ``DECODE_MMA_HEADS[D]`` KV heads of a sequence, else one a chunk of
+    ``GROUP_CHUNK`` of the ``G`` query heads of a (sequence, KV head)."""
+    if dtype == torch.bfloat16 and D in DECODE_MMA_HEADS:
+        return B * -(-KVH // DECODE_MMA_HEADS[D])
+    return B * KVH * -(-G // GROUP_CHUNK)
+
+
+def decode_split(rows: int, positions: int, n_sm: int) -> int:
     """Positions per split block of ``paged_decode_cuda``: the largest of
     ``DECODE_SPLITS`` that still gives ``DECODE_BLOCKS_PER_SM`` blocks per
-    SM over the ``positions`` (``page_idx.shape[1] * page_size``) of every
-    (sequence, KV head, chunk of ``GROUP_CHUNK`` of the ``G`` query heads),
-    else the smallest. Known on the host from shapes alone, so the wrapper
-    never waits on ``lengths``."""
-    rows = B * KVH * -(-G // GROUP_CHUNK)
+    SM over the ``positions`` (``page_idx.shape[1] * page_size``) of each
+    of the ``rows`` (``decode_rows``), else the smallest. Known on the host
+    from shapes alone, so the wrapper never waits on ``lengths``."""
     for n in DECODE_SPLITS[:-1]:
         if rows * -(-positions // n) >= DECODE_BLOCKS_PER_SM * n_sm:
             return n
@@ -114,11 +135,13 @@ def paged_decode_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     q: [B, KVH, G, D] float32 or bfloat16; k_pages / v_pages: [P,
     page_size, KVH, D] of q's dtype; page_idx: int32[B, max_pages] with ids
     in [0, P) in the first ``counts[b]`` entries; counts / lengths / starts:
-    int32[B]. Returns out [B, KVH, G, D] in q's dtype. G <= 16 (above 8 in
-    chunks of blocks, ``GROUP_CHUNK``), D <= 256 and D * itemsize a
-    multiple of 16 bytes. Two launches (the split blocks and
-    their combine) over an f32 workspace that this wrapper allocates; one
-    count.
+    int32[B]. Returns out [B, KVH, G, D] in q's dtype. G <= 16, D <= 256
+    and D * itemsize a multiple of 16 bytes. bf16 at D in
+    ``DECODE_MMA_HEAD_DIMS`` runs on the tensor cores, one block for all G
+    query heads of a KV head; f32 and other head dims on the CUDA cores,
+    above 8 query heads in chunks of blocks (``decode_rows``). Two
+    launches (the split blocks and their combine) over an f32 workspace
+    that this wrapper allocates; one count.
     """
     if not q.is_cuda:
         raise ValueError(f"q must be a CUDA tensor (got {q.device})")
@@ -147,7 +170,8 @@ def paged_decode_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     if softcap is not None and softcap <= 0:
         raise ValueError("softcap must be positive")
     max_pages = page_idx.shape[1]
-    split = decode_split(B, KVH, max_pages * page_size, _sm_count(dev), G)
+    split = decode_split(decode_rows(B, KVH, G, D, q.dtype),
+                         max_pages * page_size, _sm_count(dev))
     n_splits = -(-max_pages * page_size // split)
     # per (sequence, KV head, split, query head): (m, l), then acc[D]
     ws = torch.empty(B * KVH * n_splits * G * (D + 2), dtype=torch.float32,

@@ -86,7 +86,10 @@ def _close(got, want, what):
 
 def test_serving_path_matches_reference():
     rng = np.random.default_rng(SEED)
-    for G, D, page, softcap in ((1, 64, 8, None), (2, 16, 4, 50.0)):
+    # stablelm-1.6b's and a small head dim, then the registry's starcoder2
+    # (12 query heads a KV head) and stablelm-3b (D = 80) pairs
+    for G, D, page, softcap in ((1, 64, 8, None), (2, 16, 4, 50.0),
+                                (12, 128, 16, None), (1, 80, 8, 50.0)):
         _check_paged_decode(rng, G, D, page, softcap)
     _check_page_table(rng)
     for i, arch in enumerate(ARCHS):
