@@ -1,0 +1,15 @@
+"""Milliseconds a store call's host spends blocked on the card: the self
+time of the program's ``device.wait`` spans (``span.self_s``) over its
+root spans (``span.roots``, one a ``count`` or ``sum_``). The spans record
+under the traced part of the window only."""
+
+import sys
+
+
+def read(run):
+    obs = sys.modules.get("repro_torch.obs")
+    reg = obs.registry() if obs else None
+    roots = reg.value("span.roots") if reg else 0
+    if not roots:
+        return None
+    return 1e3 * reg.value("span.self_s", span="device.wait") / roots

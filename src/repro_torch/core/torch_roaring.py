@@ -20,7 +20,8 @@ cardinality-only forms, ``union_many_slabs``) that the object API wraps.
 Where the reference guards an expensive pass with ``lax.cond``, this
 module computes it over just the rows that need it (selected with
 ``torch.nonzero``); each such selection is one host sync — a ``_finalize``
-costs at most six, an ``_or_rows`` / ``_andnot_rows`` step two to four.
+costs at most six, an ``_or_rows`` / ``_andnot_rows`` step two to four —
+and sits in a ``device.wait`` span of ``repro_torch.obs``.
 Rows no pass touches get the same fill values as in the reference, so
 results are byte-identical.
 """
@@ -32,6 +33,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+import repro_torch.obs as obs
 from repro_torch.kernels.roaring import dispatch as _D
 from repro_torch.kernels.roaring.dispatch import _row_popcount, narrow, widen
 
@@ -81,8 +83,10 @@ def _slots(device) -> torch.Tensor:
 
 
 def _rows_where(mask: torch.Tensor) -> torch.Tensor:
-    """Indices of the true rows (one host sync)."""
-    return torch.nonzero(mask).flatten()
+    """Indices of the true rows (one host sync, in a ``device.wait``
+    span)."""
+    with obs.span("device.wait"):
+        return torch.nonzero(mask).flatten()
 
 
 def _fill(shape, value: int, like: torch.Tensor) -> torch.Tensor:
@@ -173,13 +177,15 @@ def row_bits_to_array(bits: torch.Tensor) -> torch.Tensor:
     M = bits.shape[0]
     shifts = torch.arange(16, dtype=torch.int32, device=bits.device)
     bitmat = ((bits[:, :, None] >> shifts) & 1).reshape(M, CHUNK_SIZE) == 1
-    r, pos = torch.nonzero(bitmat, as_tuple=True)
+    with obs.span("device.wait"):
+        r, pos = torch.nonzero(bitmat, as_tuple=True)
     counts = bitmat.sum(1)
     starts = torch.cumsum(counts, 0) - counts
     rank = torch.arange(r.numel(), device=bits.device) - starts[r]
     keep = rank < ROW_WORDS
     out = torch.zeros((M, ROW_WORDS), dtype=torch.int32, device=bits.device)
-    out[r[keep], rank[keep]] = pos[keep].to(torch.int32)
+    with obs.span("device.wait"):     # three boolean-mask selections
+        out[r[keep], rank[keep]] = pos[keep].to(torch.int32)
     return out
 
 

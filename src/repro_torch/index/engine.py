@@ -187,7 +187,8 @@ def _nary(stack, keys, children, combine):
         # ONE combine over (n/2)*C rows
         for c in children:
             _check_leaf(stack, c.i)
-        idx = torch.tensor([c.i for c in children], device=stack.device)
+        with obs.span("device.wait"):     # a pageable upload waits
+            idx = torch.tensor([c.i for c in children], device=stack.device)
         return tr._tree_reduce_rows(stack.payload[idx], stack.cards[idx],
                                     stack.kinds[idx], combine)
     return _fold_states([_eval(stack, keys, c) for c in children], combine)
@@ -306,7 +307,8 @@ def _fused_gather(stack, keys, order):
             data, kind, card, nruns = (stack.payload, stack.kinds,
                                        stack.cards, stack.nruns)
         else:
-            t = torch.tensor(idx, device=stack.device)
+            with obs.span("device.wait"):     # a pageable upload waits
+                t = torch.tensor(idx, device=stack.device)
             data, kind, card, nruns = (stack.payload[t], stack.kinds[t],
                                        stack.cards[t], stack.nruns[t])
     else:
@@ -332,7 +334,8 @@ def _fused_eval(stack, keys, expr: Expr, lowered=None):
     ``lowered`` is ``_fused_lower``'s output when compiled ahead; the
     operand rows are gathered on every call."""
     plan, order = lowered or _fused_lower(expr)
-    data, meta = _fused_gather(stack, keys, order)
+    with obs.span("index.gather"):
+        data, meta = _fused_gather(stack, keys, order)
     bits, card = _kops.fused_tree(data, meta, plan)
     live = card > 0
     kind = torch.where(live, tr.KIND_BITMAP, tr.KIND_EMPTY).to(torch.int32)
@@ -388,8 +391,7 @@ def _run_ladder(rungs, max_retries: int, backoff_s: float):
         tries = (max_retries + 1) if r == 0 else 1
         for attempt in range(tries):
             try:
-                with obs.span("index.rung", kind=rung_kind,
-                              backend=rung_backend, attempt=attempt):
+                with obs.span("index.rung"):
                     with _kops.backend_scope(rung_backend):
                         out = fn()
                 reg.counter("index.rung_taken", kind=rung_kind,
@@ -414,7 +416,7 @@ def _run_query(fused_fn, per_op_fn, fused: bool, backend: Optional[str],
     ``"torch"`` backend runs its one rung directly."""
     preferred = backend or _kops.current_backend(device)
     if preferred == "torch" and not fused:
-        with obs.span("index.rung", kind="per_op", backend="torch"):
+        with obs.span("index.rung"):
             with _kops.backend_scope("torch"):
                 out = per_op_fn()
         obs.registry().counter("index.rung_taken", kind="per_op",
@@ -453,22 +455,19 @@ def execute(stack: Optional[RoaringSlab], expr: Optional[Expr] = None,
     """
     stack, expr, keys, lowered = _prepare(stack, expr, capacity, compiled)
 
+    def finalize(data, card, kind) -> RoaringSlab:
+        with obs.span("index.finalize"):
+            return _wrap(tr._finalize_rows(keys, data, card, kind))
+
     def per_op() -> RoaringSlab:
-        data, card, kind = _eval(stack, keys, expr)
-        return _wrap(tr._finalize_rows(keys, data, card, kind))
+        return finalize(*_eval(stack, keys, expr))
 
     def fused_attempt() -> RoaringSlab:
-        data, card, kind = _fused_eval(stack, keys, expr, lowered)
-        return _wrap(tr._finalize_rows(keys, data, card, kind))
+        return finalize(*_fused_eval(stack, keys, expr, lowered))
 
-    with obs.span("index.execute", fused=fused, backend=backend or "auto"):
-        if obs.enabled() and stack is not None:
-            obs.record_kinds("index.input_kinds", stack.kinds)
-        out = _run_query(fused_attempt, per_op, fused, backend, max_retries,
-                         backoff_s, keys.device)
-        if obs.enabled():
-            obs.record_kinds("index.output_kinds", out.kinds)
-        return out
+    with obs.span("index.execute"):
+        return _run_query(fused_attempt, per_op, fused, backend, max_retries,
+                          backoff_s, keys.device)
 
 
 def execute_card(stack: Optional[RoaringSlab],
@@ -490,10 +489,7 @@ def execute_card(stack: Optional[RoaringSlab],
         _, card, _ = _fused_eval(stack, keys, expr, lowered)
         return card.sum(dtype=torch.int64)
 
-    with obs.span("index.execute_card", fused=fused,
-                  backend=backend or "auto"):
-        if obs.enabled() and stack is not None:
-            obs.record_kinds("index.input_kinds", stack.kinds)
+    with obs.span("index.execute_card"):
         return _run_query(fused_attempt, per_op, fused, backend, max_retries,
                           backoff_s, keys.device)
 
@@ -554,9 +550,10 @@ def _stack_scores(data, card, kind, nruns, qd, qc, qk, qr):
 def batched_and_card(stack: RoaringSlab, query: SlabLike) -> torch.Tensor:
     """i32[N] of |slab_n ∩ query| — one stacked dispatch launch covers all
     N*C container pairs; nothing is materialized or canonicalized."""
-    qd, qc, qk, qr = _align_query(stack, query)
-    return _stack_scores(stack.payload, stack.cards, stack.kinds, stack.nruns,
-                         qd, qc, qk, qr)
+    with obs.span("index.score"):
+        qd, qc, qk, qr = _align_query(stack, query)
+        return _stack_scores(stack.payload, stack.cards, stack.kinds,
+                             stack.nruns, qd, qc, qk, qr)
 
 
 def topk_by_card(stack: RoaringSlab, query: SlabLike, k: int):

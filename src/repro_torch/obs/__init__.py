@@ -1,20 +1,24 @@
-"""`repro_torch.obs` — the zero-dependency telemetry plane.
+"""`repro_torch.obs` — the telemetry plane.
 
 Two halves: :mod:`repro_torch.obs.trace` (context-manager spans with a
-thread-local active stack, collected into exportable span trees) and
-:mod:`repro_torch.obs.metrics` (a process-global registry of counters / gauges /
-histograms). :mod:`repro_torch.obs.report` exports both as JSON / text and
-cross-checks measured kernel-launch counts against the engine's analytic
-launch model.
+thread-local stack of open spans, collected into span trees, per-name
+self-time counters and a flat ``timeline()``) and
+:mod:`repro_torch.obs.metrics` (a process-global registry of counters /
+gauges / histograms).
 
-Off by default: ``enable()`` flips the tracing flag *and* subscribes the
-launch-event hook in ``kernels/roaring/ops.py`` so every kernel dispatch
-increments ``roaring.launches{entry,backend}`` and lands as an event on the
-innermost open span. ``disable()`` undoes both. The metrics registry itself
-has no switch — bare-int counters (ladder failures, cache hits) are cheap
-enough to stay always-on — but instrumentation sites that cost real work
-(host syncs for kind histograms, gauge refreshes, span bookkeeping) gate on
-``enabled()``.
+Spans record while ``enable()`` is on or while a ``torch.profiler``
+profile is running: profile the process with ``torch.profiler`` and the
+store's and engine's spans come with it, on the same monotonic clock.
+Under a root span, every phase of a store call is named ``store.*``,
+``index.*`` or ``device.wait`` (the host blocked on the card), so the
+``span.self_s`` counters of the three split each call's time.
+
+``enable()`` also subscribes the launch-event hook in
+``kernels/roaring/ops.py``, so every kernel dispatch increments
+``roaring.launches{entry,backend}``; ``disable()`` undoes both. The
+metrics registry has no switch: bare-number counters (ladder failures,
+cache hits, build phases) are cheap enough to stay always-on. Recording
+adds no host sync.
 """
 
 from __future__ import annotations
@@ -22,41 +26,30 @@ from __future__ import annotations
 from contextlib import contextmanager
 
 from repro_torch.obs.metrics import (Counter, Gauge, Histogram, MetricsRegistry,
-                               publish_service_gauges, registry,
-                               reset_metrics)
-from repro_torch.obs.report import (collect, environment, launch_crosscheck,
-                              render_text, write_report)
+                                     publish_service_gauges, registry,
+                                     reset_metrics)
 from repro_torch.obs.trace import (Span, current_span, reset_traces, span,
-                             span_trees, tracing)
+                                   span_trees, timeline)
 from repro_torch.obs import trace as _trace
 
 __all__ = [
     # switches
     "enable", "disable", "enabled", "telemetry_scope",
     # tracing
-    "Span", "span", "current_span", "span_trees", "reset_traces",
+    "Span", "span", "current_span", "span_trees", "timeline",
+    "reset_traces",
     # metrics
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "registry",
-    "reset_metrics", "record_kinds", "KIND_NAMES",
-    "publish_service_gauges",
-    # reporting
-    "collect", "write_report", "render_text", "launch_crosscheck",
-    "environment",
+    "reset_metrics", "publish_service_gauges",
 ]
-
-KIND_NAMES = ("empty", "array", "bitmap", "run")
 
 _HOOKED = False
 
 
 def _on_launch(ev) -> None:
-    """Launch-hook subscriber: count the dispatch and pin it to the
-    innermost open span as an event."""
+    """Launch-hook subscriber: count the dispatch."""
     registry().counter("roaring.launches",
                        entry=ev.entry, backend=ev.backend).inc()
-    sp = current_span()
-    if sp is not None:
-        sp.add_event("launch", entry=ev.entry, backend=ev.backend)
 
 
 def enable() -> None:
@@ -71,8 +64,9 @@ def enable() -> None:
 
 
 def disable() -> None:
-    """Turn telemetry off (the default). Collected spans/metrics are kept
-    until ``reset_traces()`` / ``reset_metrics()``."""
+    """Turn telemetry off (the default; a running ``torch.profiler`` still
+    records spans). Collected spans/metrics are kept until
+    ``reset_traces()`` / ``reset_metrics()``."""
     global _HOOKED
     _trace.set_tracing(False)
     if _HOOKED:
@@ -82,8 +76,8 @@ def disable() -> None:
 
 
 def enabled() -> bool:
-    """Whether telemetry is currently on."""
-    return _trace.tracing()
+    """Whether ``enable()`` is on (spans also record under a profiler)."""
+    return _trace._ENABLED
 
 
 @contextmanager
@@ -97,18 +91,3 @@ def telemetry_scope(on: bool = True):
         yield
     finally:
         (enable if was else disable)()
-
-
-def record_kinds(name: str, kinds) -> None:
-    """Bump per-container-kind counters (``<name>{kind=...}``) from a kinds
-    tensor. The host sync only happens while telemetry is enabled."""
-    if not enabled():
-        return
-    import torch
-    counts = torch.bincount(kinds.detach().reshape(-1).to(torch.int64).cpu(),
-                            minlength=len(KIND_NAMES)).tolist()
-    reg = registry()
-    for i, kname in enumerate(KIND_NAMES):
-        n = int(counts[i]) if i < len(counts) else 0
-        if n:
-            reg.counter(name, kind=kname).inc(n)

@@ -1,39 +1,36 @@
 """Process-global metrics registry: counters, gauges, histograms.
 
-Zero-dependency (pure Python) so every layer — kernel launch hooks, the
-query engine's degradation ladder, the search service's slab cache — can publish without import cycles or device round trips. Metrics
-are keyed by ``(name, sorted labels)``; the rendered form is Prometheus-ish
+Pure Python, so every layer — kernel launch hooks, the query engine's
+degradation ladder, the search service's slab cache, the spans' self-time
+counters — can publish without import cycles or device round trips.
+Metrics are keyed by ``(name, sorted labels)``
 (``roaring.launches{backend=cuda,entry=fused_tree}``).
 
-Counters are plain Python ints guarded by the GIL (increments are a dict
-lookup + integer add — cheap enough for always-on accounting like the
-ladder's failure counters), so the registry itself has no on/off switch;
-*instrumentation sites* that would cost real work (host syncs for kind
-histograms, span bookkeeping) gate on ``repro_torch.obs.enabled()`` instead.
+Counters are plain Python numbers guarded by the GIL (an increment is a
+dict lookup and an add — cheap enough for always-on accounting like the
+ladder's failure counters or the store's build phases), so the registry
+has no on/off switch; span bookkeeping and gauge refreshes gate on their
+own conditions (``repro_torch.obs.trace``). The spans' counters are
+brought up to date by a collector the registry runs before each read and
+reset, so read them through ``value``, ``total`` or ``counters``. A reset
+zeroes every metric in place, so a metric object fetched once stays the
+registry's.
 """
 
 from __future__ import annotations
 
 import math
 import threading
-from typing import Any, Dict, Iterable, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
-           "registry", "reset_metrics", "render_key"]
+           "registry", "reset_metrics"]
 
 _Key = Tuple[str, Tuple[Tuple[str, str], ...]]
 
 
 def _key(name: str, labels: Dict[str, Any]) -> _Key:
     return name, tuple(sorted((k, str(v)) for k, v in labels.items()))
-
-
-def render_key(key: _Key) -> str:
-    """``(name, labels)`` -> ``name{k=v,...}`` (plain ``name`` unlabeled)."""
-    name, labels = key
-    if not labels:
-        return name
-    return name + "{" + ",".join(f"{k}={v}" for k, v in labels) + "}"
 
 
 class Counter:
@@ -91,12 +88,6 @@ class Histogram:
     def reset(self) -> None:
         self.__init__()
 
-    def to_dict(self) -> dict:
-        return {"count": self.count, "sum": self.sum, "min": self.min,
-                "max": self.max,
-                "buckets": {f"<2^{b}": n
-                            for b, n in sorted(self.buckets.items())}}
-
 
 class MetricsRegistry:
     """Name+label-keyed metric store; metrics are created on first use."""
@@ -106,6 +97,17 @@ class MetricsRegistry:
         self._counters: Dict[_Key, Counter] = {}
         self._gauges: Dict[_Key, Gauge] = {}
         self._histograms: Dict[_Key, Histogram] = {}
+        self._collectors: List[Callable[[], None]] = []
+
+    def add_collector(self, fn: Callable[[], None]) -> None:
+        """Have ``fn`` bring its metrics up to date before every read
+        (``value``, ``total``, ``counters``) and reset — how the spans
+        publish their self times outside the calls they time."""
+        self._collectors.append(fn)
+
+    def _collect(self) -> None:
+        for fn in self._collectors:
+            fn()
 
     def _get(self, table: dict, cls, name: str, labels: dict):
         k = _key(name, labels)
@@ -126,6 +128,7 @@ class MetricsRegistry:
 
     def value(self, name: str, **labels: Any) -> float:
         """Current value of a counter or gauge (0 when never touched)."""
+        self._collect()
         k = _key(name, labels)
         if k in self._counters:
             return self._counters[k].value
@@ -136,37 +139,23 @@ class MetricsRegistry:
     def total(self, name: str, **labels: Any) -> int:
         """Sum of every counter named ``name`` whose labels include all the
         given ones (e.g. launches for one ``entry`` across backends)."""
+        self._collect()
         want = set((k, str(v)) for k, v in labels.items())
         return sum(c.value for (n, lbl), c in list(self._counters.items())
                    if n == name and want <= set(lbl))
 
     def counters(self) -> Iterable[Tuple[_Key, Counter]]:
+        """Every counter as ``((name, sorted label pairs), Counter)``."""
+        self._collect()
         return list(self._counters.items())
 
-    def remove(self, name: str) -> None:
-        """Drop every metric (any type, any labels) with this name."""
+    def reset(self) -> None:
+        """Zero every metric in place (test isolation / fresh windows)."""
+        self._collect()
         with self._lock:
             for table in (self._counters, self._gauges, self._histograms):
-                for k in [k for k in table if k[0] == name]:
-                    del table[k]
-
-    def reset(self) -> None:
-        """Forget every metric (test isolation / fresh report windows)."""
-        with self._lock:
-            self._counters.clear()
-            self._gauges.clear()
-            self._histograms.clear()
-
-    def snapshot(self) -> dict:
-        """JSON-exportable state: rendered-name -> value tables."""
-        return {
-            "counters": {render_key(k): c.value
-                         for k, c in sorted(self._counters.items())},
-            "gauges": {render_key(k): g.value
-                       for k, g in sorted(self._gauges.items())},
-            "histograms": {render_key(k): h.to_dict()
-                           for k, h in sorted(self._histograms.items())},
-        }
+                for m in table.values():
+                    m.reset()
 
 
 _REGISTRY = MetricsRegistry()
@@ -189,8 +178,8 @@ def publish_service_gauges(prefix: str, *, queue_depth: int, active: int,
     Both admission-queue engines — the token server (``serve.engine``) and
     the search service (``search.service``) — publish the same four gauges
     under their own prefix (``{prefix}.queue_depth`` / ``.active_seqs`` /
-    ``.requeues`` / ``.steps``), so dashboards and the telemetry report
-    read backpressure identically across planes. ``extra`` adds
+    ``.requeues`` / ``.steps``), so a reader reads backpressure
+    identically across planes. ``extra`` adds
     engine-specific gauges under the same prefix (page-pool occupancy,
     cache residency, ...). Call sites gate on ``obs.enabled()`` — gauge
     refreshes are part of the pay-only-when-watching contract.

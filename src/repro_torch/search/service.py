@@ -246,7 +246,7 @@ class SearchService:
         """Lower + enqueue one query; returns the request id."""
         if mode not in MODES:
             raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
-        with obs.span("search.plan", mode=mode):
+        with obs.span("search.plan"):
             expr, terms = lower(q)
         if len(terms) > self.cache_slots:
             raise ValueError(
@@ -269,10 +269,9 @@ class SearchService:
             for r in batch:
                 batch_terms.extend(t for t in r.terms
                                    if t not in batch_terms)
-            with obs.span("search.cache", terms=len(batch_terms)):
+            with obs.span("search.cache"):
                 slot_of = self._cache.ensure(batch_terms)
-            with obs.span("search.execute", batch=len(batch),
-                          mode=batch[0].mode):
+            with obs.span("search.execute"):
                 self._execute(batch, slot_of)
         self.steps_run += 1
         if obs.enabled():

@@ -46,7 +46,7 @@ the ``store.fallback_eager`` path; a launch or build error propagates.
 from __future__ import annotations
 
 import dataclasses
-import itertools
+import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -68,8 +68,6 @@ __all__ = ["BitmapStore", "EqColumn", "BsiColumn",
 UNIVERSE_SLOT = 0          # all rows — the NOT / open-range operand
 EMPTY_SLOT = 1             # no rows — the unseen-value / empty-IN operand
 _RESERVED_SLOTS = 2
-
-_STORE_IDS = itertools.count()   # distinguishes per-store telemetry gauges
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,11 +114,13 @@ def _posting(row_ids: np.ndarray) -> pr.RoaringBitmap:
         np.asarray(row_ids, np.int64)).run_optimize()
 
 
-def _stack_bitmaps(bitmaps: Sequence[pr.RoaringBitmap], n_rows: int,
-                   n_chunks: int, device) -> RoaringSlab:
-    """Host bitmaps -> ONE stacked ``RoaringSlab`` aligned to the row
-    universe's chunk keys (every posting is a subset of ``[0, n_rows)``, so
-    the shared key row is ``arange(n_chunks)``)."""
+def _pack_bitmaps(bitmaps: Sequence[pr.RoaringBitmap], n_rows: int,
+                  n_chunks: int) -> tuple:
+    """Host bitmaps -> the host arrays of ONE stacked slab aligned to the
+    row universe's chunk keys (every posting is a subset of ``[0,
+    n_rows)``, so the shared key row is ``arange(n_chunks)``): ``(keys,
+    kinds, cards, nruns, payload)`` as ``RoaringSlab.from_numpy`` takes
+    them."""
     N = len(bitmaps)
     kinds = np.zeros((N, n_chunks), np.int32)
     cards = np.zeros((N, n_chunks), np.int32)
@@ -149,7 +149,14 @@ def _stack_bitmaps(bitmaps: Sequence[pr.RoaringBitmap], n_rows: int,
     else:
         keys_row = np.full((n_chunks,), jr.KEY_SENTINEL, np.int32)
     keys = np.broadcast_to(keys_row, (N, n_chunks))
-    return RoaringSlab.from_numpy(keys, kinds, cards, nruns, payload,
+    return keys, kinds, cards, nruns, payload
+
+
+def _stack_bitmaps(bitmaps: Sequence[pr.RoaringBitmap], n_rows: int,
+                   n_chunks: int, device) -> RoaringSlab:
+    """Host bitmaps -> ONE stacked ``RoaringSlab`` on ``device`` (see
+    ``_pack_bitmaps``)."""
+    return RoaringSlab.from_numpy(*_pack_bitmaps(bitmaps, n_rows, n_chunks),
                                   device=device)
 
 
@@ -190,11 +197,12 @@ class BitmapStore:
     """Per-(column, value) Roaring bitmap index over columnar records."""
 
     def __init__(self, n_rows: int, columns: Sequence, bitmaps: Sequence, *,
-                 device=None):
+                 device=None, stack: Optional[RoaringSlab] = None):
         """Internal constructor — use ``build`` (from records) or ``load``
         (from a saved stream). ``bitmaps`` is the full slot-ordered list,
         including the universe and empty slots; the stacked slab goes to
-        ``device`` (default: the card)."""
+        ``device`` (default: the card), or is ``stack`` when the caller
+        stacked them already."""
         device = _device.resolve(device)
         self.n_rows = int(n_rows)
         self.columns: Tuple = tuple(columns)
@@ -206,13 +214,12 @@ class BitmapStore:
                 for i, v in enumerate(c.values):
                     self._eq_slot[(c.name, v)] = c.base_slot + i
         self.n_chunks = _chunks_for(self.n_rows)
-        self._stack = _stack_bitmaps(self._bitmaps, self.n_rows,
-                                     self.n_chunks, device)
+        self._stack = stack if stack is not None else _stack_bitmaps(
+            self._bitmaps, self.n_rows, self.n_chunks, device)
         # compiled plans per (expr, fused, backend): the lowered tree and,
         # fused, the FusedPlan with its operand order, no operand rows
         # (expression dataclasses are frozen, so they hash as cache keys)
         self._plans: Dict[Tuple, ix.CompiledQuery] = {}
-        self._id = next(_STORE_IDS)
         self._cache_hits = 0       # key already held a compiled plan
         self._cache_misses = 0     # cold compile: new plan lowered
         self._cache_fallbacks = 0  # injected fault -> uncompiled ladder
@@ -227,8 +234,12 @@ class BitmapStore:
         Columns named in ``bsi`` must be non-negative integers and become
         bit-sliced-index columns (``range_`` / ``eq`` / ``in_`` / ``sum_``
         via slice algebra); every other column becomes an equality column
-        with one posting slab per distinct value.
+        with one posting slab per distinct value. The build adds its
+        seconds to ``store.build_s{phase=...}``: ``postings`` (the sorts
+        and host bitmaps), ``pack`` (the stacked slab's host arrays) and
+        ``copy`` (their copy to ``device``, synchronised).
         """
+        t0 = time.perf_counter()
         device = _device.resolve(device)
         if not records:
             raise ValueError("build needs at least one column")
@@ -276,7 +287,18 @@ class BitmapStore:
                     values.append(int(v) if vkind == "int" else str(v))
                     bitmaps.append(_posting(order[s:e]))
                 columns.append(EqColumn(name, vkind, tuple(values), base))
-        return cls(n_rows, columns, bitmaps, device=device)
+        t1 = time.perf_counter()
+        packed = _pack_bitmaps(bitmaps, n_rows, _chunks_for(n_rows))
+        t2 = time.perf_counter()
+        stack = RoaringSlab.from_numpy(*packed, device=device)
+        if stack.device.type == "cuda":
+            torch.cuda.synchronize(stack.device)
+        t3 = time.perf_counter()
+        reg = obs.registry()
+        reg.counter("store.build_s", phase="postings").inc(t1 - t0)
+        reg.counter("store.build_s", phase="pack").inc(t2 - t1)
+        reg.counter("store.build_s", phase="copy").inc(t3 - t2)
+        return cls(n_rows, columns, bitmaps, device=device, stack=stack)
 
     # -- persistence ----------------------------------------------------------
     def save(self) -> bytes:
@@ -418,24 +440,11 @@ class BitmapStore:
         plan), ``misses`` (cold compiles), ``fallbacks`` (an injected fault
         survived the compiled run's ladder and the query re-ran uncompiled —
         counted separately from cold compiles), ``entries``, and what the
-        cache is keyed by. Also refreshes the
-        ``store.query_cache.*{store=<id>}`` registry gauges."""
-        self._publish_cache_gauges()
+        cache is keyed by."""
         return {"hits": self._cache_hits, "misses": self._cache_misses,
                 "fallbacks": self._cache_fallbacks,
                 "entries": len(self._plans),
                 "keyed_by": "(expr, fused, backend)"}
-
-    def _publish_cache_gauges(self) -> None:
-        reg = obs.registry()
-        sid = self._id
-        reg.gauge("store.query_cache.hits", store=sid).set(self._cache_hits)
-        reg.gauge("store.query_cache.misses",
-                  store=sid).set(self._cache_misses)
-        reg.gauge("store.query_cache.fallbacks",
-                  store=sid).set(self._cache_fallbacks)
-        reg.gauge("store.query_cache.entries",
-                  store=sid).set(len(self._plans))
 
     def _run_cached(self, key: Tuple, expr: ix.Expr, fused: bool,
                     run: Callable, eager_fn: Callable):
@@ -453,7 +462,7 @@ class BitmapStore:
             self._cache_hits += 1
             cache = "hit"
         try:
-            with obs.span("store.execute", cache=cache):
+            with obs.span("store.execute"):
                 return run(plan)
         except InjectedFault:
             self._cache_fallbacks += 1
@@ -469,12 +478,12 @@ class BitmapStore:
 
         The tree is compiled once per (expr, fused, backend) and reused. An
         injected fault that survives the compiled run's ladder re-runs the
-        query uncompiled with ``max_retries`` / ``backoff_s``. With
-        telemetry enabled (``repro_torch.obs.enable()``) the call records a
-        compile -> execute span tree, output-kind histograms, and the
-        query-cache gauges.
+        query uncompiled with ``max_retries`` / ``backoff_s``. While spans
+        record (``repro_torch.obs.enable()`` or a running
+        ``torch.profiler``) the call leaves a ``store.query`` tree:
+        ``store.compile``, ``store.execute`` and the engine's spans under it.
         """
-        with obs.span("store.query", fused=fused):
+        with obs.span("store.query"):
             with obs.span("store.compile"):
                 expr = self.compile(pred)
             out = self._run_cached(
@@ -484,9 +493,6 @@ class BitmapStore:
                 lambda: ix.execute(self._stack, expr, fused=fused,
                                    backend=backend, max_retries=max_retries,
                                    backoff_s=backoff_s))
-            if obs.enabled():
-                obs.record_kinds("store.output_kinds", out.kinds)
-                self._publish_cache_gauges()
             return out
 
     def count(self, pred: P.Pred, *, fused: bool = False,
@@ -494,7 +500,7 @@ class BitmapStore:
               backoff_s: float = 0.0) -> int:
         """|rows matching ``pred``| without materializing the result slab
         (the same plan cache and fallback as ``query``)."""
-        with obs.span("store.count", fused=fused):
+        with obs.span("store.count"):
             with obs.span("store.compile"):
                 expr = self.compile(pred)
             out = self._run_cached(
@@ -505,9 +511,8 @@ class BitmapStore:
                                         backend=backend,
                                         max_retries=max_retries,
                                         backoff_s=backoff_s))
-            if obs.enabled():
-                self._publish_cache_gauges()
-            return int(out)
+            with obs.span("device.wait"):
+                return int(out)
 
     def query_indices(self, pred: P.Pred, **kw) -> np.ndarray:
         """Matching row ids as a sorted host ``int64`` array."""
@@ -522,13 +527,16 @@ class BitmapStore:
         if not isinstance(col, BsiColumn):
             raise TypeError(f"sum_ needs a bit-sliced column; {name!r} is "
                             "an equality column")
-        rows = self.query(pred) if pred is not None else \
-            ix.execute(self._stack, ix.leaf(UNIVERSE_SLOT))
-        slots = torch.arange(col.base_slot, col.base_slot + col.bits,
-                             device=self._stack.device)
-        per_bit = ix.batched_and_card(self._stack[slots], rows).cpu().numpy()
-        weights = np.asarray([1 << j for j in range(col.bits)], np.int64)
-        return int(per_bit.astype(np.int64) @ weights)
+        with obs.span("store.sum_"):
+            rows = self.query(pred) if pred is not None else \
+                ix.execute(self._stack, ix.leaf(UNIVERSE_SLOT))
+            slots = torch.arange(col.base_slot, col.base_slot + col.bits,
+                                 device=self._stack.device)
+            scores = ix.batched_and_card(self._stack[slots], rows)
+            with obs.span("device.wait"):
+                per_bit = scores.cpu().numpy()
+            weights = np.asarray([1 << j for j in range(col.bits)], np.int64)
+            return int(per_bit.astype(np.int64) @ weights)
 
     def __repr__(self) -> str:
         parts = ", ".join(

@@ -24,6 +24,7 @@ import jax.numpy as jnp
 
 from _torch_parity import (KIND_CASES, case_rows, pair_grid,  # noqa: F401
                            release_jax_executables, to_np16, to_t16)
+from _torch_threads import share_cores_between_workers
 from repro.kernels.roaring import dispatch as JD
 from repro.kernels.roaring import kernel as JK
 from repro.kernels.roaring import ops as JOPS
@@ -33,6 +34,8 @@ from repro_torch.kernels.roaring import dispatch as TD
 from repro_torch.kernels.roaring import kernel as TK
 from repro_torch.kernels.roaring import ops as TOPS
 from repro_torch.kernels.roaring import ref as TR
+
+share_cores_between_workers()
 
 SEED = 1402
 CASES = sorted(KIND_CASES) + ["empty"]

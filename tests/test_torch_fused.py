@@ -18,8 +18,11 @@ import jax.numpy as jnp
 
 from _torch_parity import (case_rows, release_jax_executables,  # noqa: F401
                            to_np16, to_t16)
+from _torch_threads import share_cores_between_workers
 from repro.kernels.roaring import fused as JF
 from repro_torch.kernels.roaring import fused as TF
+
+share_cores_between_workers()
 
 SEED = 1402
 _jax_fused = jax.jit(JF.fused_eval_ref, static_argnames="plan")

@@ -10,6 +10,8 @@ This file imports no JAX: the machine with the card has none. Every check
 is exact: the kernels and their plain versions return integers.
 """
 
+import warnings
+
 import numpy as np
 import pytest
 import torch
@@ -18,6 +20,7 @@ if not torch.cuda.is_available():
     pytest.skip("needs an NVIDIA card (run on the chip)",
                 allow_module_level=True)
 
+from repro_torch import obs  # noqa: E402
 from repro_torch import roaring  # noqa: E402
 from repro_torch import store  # noqa: E402
 from repro_torch.core import py_roaring as pr  # noqa: E402
@@ -184,3 +187,47 @@ def test_store_query_on_card_equals_cpu():
             blob = answers[dev][0]
             assert store.BitmapStore.load(blob, check=True).save() == blob
     assert answers["cuda"] == answers["cpu"]
+
+
+def _sync_warnings(calls, record):
+    """The span open at each synchronising-call warning that ``calls``
+    raise under the sync debug mode, with spans recording or not."""
+    seen = []
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing CUDA operation" in str(message):
+            sp = obs.current_span()
+            seen.append((sp.name if sp else None, filename, lineno))
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        (obs.enable if record else obs.disable)()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for call in calls:
+                call()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            obs.disable()
+            obs.reset_traces()
+            obs.reset_metrics()
+    return seen
+
+
+def test_store_waits_on_the_card_only_inside_device_wait():
+    rng = np.random.default_rng(SEED)
+    n = 300_000
+    records = {"a": rng.integers(0, 40, n), "b": rng.integers(0, 11, n),
+               "q": rng.integers(1, 51, n), "v": rng.integers(0, 9000, n)}
+    s = store.BitmapStore.build(records, bsi=("q", "v"), device="cuda")
+    pred = store.and_(store.eq("a", 7), store.range_("b", 1, 3),
+                      store.range_("q", None, 24))
+    calls = (lambda: s.count(pred, fused=True), lambda: s.sum_("v", pred))
+    for call in calls:                   # the plans compile once
+        call()
+    torch.cuda.synchronize()
+    on = _sync_warnings(calls, record=True)
+    off = _sync_warnings(calls, record=False)
+    assert on and [w for w in on if w[0] != "device.wait"] == []
+    assert len(on) == len(off)

@@ -23,6 +23,7 @@ from _torch_baselines import check_baselines
 from _torch_parity import (KIND_CASES, container_row,  # noqa: F401
                            release_jax_executables, slab_leaves, to_np16,
                            to_t16)
+from _torch_threads import share_cores_between_workers
 from repro import index as JIX
 from repro import roaring as JRG
 from repro.core import jax_roaring as jr
@@ -31,6 +32,8 @@ from repro_torch import index as TIX
 from repro_torch.core import py_roaring as tpr
 from repro_torch.core import torch_roaring as tr
 from repro_torch.roaring import RoaringFormatSpec, RoaringSlab
+
+share_cores_between_workers()
 
 SEED = 1402
 CORPUS = Path(__file__).resolve().parent / "corpus"

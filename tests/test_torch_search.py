@@ -22,10 +22,13 @@ import pytest
 
 from _torch_distributed import check_two_rank_search
 from _torch_parity import release_jax_executables, slab_leaves  # noqa: F401
+from _torch_threads import share_cores_between_workers
 from repro import search as JS
 from repro_torch import obs
 from repro_torch import search as TS
 from repro_torch.runtime import FaultPlan, fault_scope
+
+share_cores_between_workers()
 
 ROOT = Path(__file__).resolve().parent.parent
 N_DOCS = 100_000          # C = 2 chunks, the last one partial

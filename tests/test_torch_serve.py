@@ -38,6 +38,7 @@ import torch
 
 from _torch_archs import check_decode_and_engine
 from _torch_parity import release_jax_executables  # noqa: F401
+from _torch_threads import share_cores_between_workers
 from repro.configs import get_config as ref_config
 from repro.kernels.sparse_attn import kernel as RK
 from repro.kernels.sparse_attn import ref as RR
@@ -54,6 +55,8 @@ from repro_torch.models.convert import params_from_numpy
 from repro_torch.serve import Request as PRequest
 from repro_torch.serve import RoaringPageTable as PTable
 from repro_torch.serve import ServeEngine as PEngine
+
+share_cores_between_workers()
 
 SEED = 1402
 ATOL, RTOL = 2e-5, 2e-4      # float32, sums taken in another order

@@ -43,6 +43,7 @@ import pytest
 import torch
 
 from _torch_parity import release_jax_executables, to_np16  # noqa: F401
+from _torch_threads import share_cores_between_workers
 from repro import index as JIX
 from repro import roaring as JRG
 from repro import store as JST
@@ -52,6 +53,8 @@ from repro_torch import roaring as TRG
 from repro_torch import search as TSE
 from repro_torch import store as TST
 from repro_torch.core import py_roaring as tpr
+
+share_cores_between_workers()
 
 SEED = 1402
 CORPUS = Path(__file__).resolve().parent / "corpus"

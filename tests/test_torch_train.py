@@ -66,6 +66,7 @@ from _torch_distributed import check_grad_comp, check_two_rank_training
 from _torch_train_archs import (check_launcher_archs,
                                 check_optimizers_and_train_steps)
 from _torch_parity import release_jax_executables  # noqa: F401
+from _torch_threads import share_cores_between_workers
 from repro import sparsity as RS
 from repro.configs import get_config as ref_config
 from repro.data import BitmapIndex as RIndex
@@ -98,6 +99,8 @@ from repro_torch.optim import adamw as p_adamw
 from repro_torch.optim import cosine_schedule as p_cosine
 from repro_torch.runtime import simulate_failure
 from repro_torch.train import make_train_step as p_make_step
+
+share_cores_between_workers()
 
 SEED = 1402
 ATOL, RTOL = 2e-5, 2e-4
